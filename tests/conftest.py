@@ -25,6 +25,10 @@ def pytest_configure(config):
         "slow: compile-heavy tests (>=15s on a 1-core CPU host); "
         "ci.sh skips these by default — run `bash scripts/ci.sh --full` "
         "or `pytest -m slow` for the full tier")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); the test "
+        "decides inside itself and skips without one")
 
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "golden"

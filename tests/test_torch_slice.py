@@ -1,0 +1,144 @@
+"""The PyTorch port's serve path as a whole (``--stage sample``) against the
+JAX app on the CPU, at a reduced size, and the port's package rules: no
+import of JAX or of the JAX package, entry points that default to the card,
+configs read as the JAX app reads them.
+"""
+
+import ast
+import glob
+import importlib.util
+import inspect
+import os
+
+import flax
+import numpy as np
+import pytest
+import torch
+
+from sdirt_tpu_torch import dfdp_net
+from sdirt_tpu_torch.dfdp import basenet, factory
+from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+from sdirt_tpu_torch.utils.config import load_config
+from sdirt_tpu_torch.utils.device import resolve_device
+from sdirt_tpu_torch.utils.weights import load_npz
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG = os.path.join(ROOT, "configs", "dfdp_by_sdirt_rf50mm.yml")
+CROP = (slice(192, 320), slice(288, 480))      # 128x192 window of 512x768
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "cv2", "PIL",
+             "pandas", "sdirt_tpu"}
+
+
+class Cropped:
+    """The first n samples of a set, each array cut to the CROP window."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return [np.ascontiguousarray(a[..., CROP[0], CROP[1]]) for a in self.ds[i]]
+
+
+def _jax_app():
+    spec = importlib.util.spec_from_file_location(
+        "jax_dfdp_net", os.path.join(ROOT, "apps", "dfdp_net.py"))
+    app = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(app)
+    return app
+
+
+def test_stage_sample_reduced_matches_jax(tmp_path, monkeypatch):
+    """One flat scene and one frame of each depth set, cut to 128x192, through
+    the port (plain versions on the CPU) and the JAX app (its scan render,
+    as the reference numbers were made)."""
+    from sdirt_tpu.dfdp import factory as jax_factory
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setenv("SDIRT_RENDER_VARIANT", "scan")
+    app = _jax_app()
+    args = load_config(CONFIG)
+    args.update(results_dir=str(tmp_path), train_mode="dfdp",
+                save_images=False, save_ckpt=False)
+
+    flat = Cropped(factory.get_flat_sample_set(args), 1)
+    _, jax_lens = jax_factory.get_lens(args)
+    ref_flat = app.test_dp_images(jax_lens, flat, "flat", args)
+    _, lens = factory.get_lens(args, device="cpu")
+    for variant, tol_db in (("fused", 0.1), ("scan", 0.1)):
+        rec = dfdp_net.test_dp_images(lens, flat, variant)[0]
+        got = [rec[k] for k in ("psnr_l", "psnr_r", "ssim_l", "ssim_r")]
+        # the JAX package's render-variant gate: 0.1 dB
+        np.testing.assert_allclose(got[:2], ref_flat[:2], rtol=0, atol=tol_db)
+        np.testing.assert_allclose(got[2:], ref_flat[2:], rtol=0, atol=2e-3)
+
+    variables = flax.traverse_util.unflatten_dict(load_npz(
+        factory.ported_weights(args["train"]["dfdpnet_pretrained"])), sep="/")
+    net = basenet.build_basenet(
+        factory.ported_weights(args["train"]["dfdpnet_pretrained"]),
+        device="cpu")
+    for tag, ds in zip(("box", "f2d", "casual"),
+                       factory.get_depth_sample_set(args)):
+        ds = Cropped(ds, 1)
+        ref = app.test_depth(variables["params"], variables["batch_stats"],
+                             ds, tag, args)
+        got = dfdp_net.test_depth(net, ds, "cpu")
+        for k, v in ref.items():
+            assert abs(got[k] - v) <= 0.005, (tag, k, got[k], v)
+
+
+def _package_files():
+    files = glob.glob(os.path.join(ROOT, "sdirt_tpu_torch", "**", "*.py"),
+                      recursive=True)
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", _package_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_forbidden_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+ENTRY_POINTS = [PSFNetLens.__init__, basenet.build_basenet, factory.get_lens,
+                dfdp_net.run_sample, resolve_device]
+
+
+@pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.chdir(ROOT)
+    args = load_config(CONFIG)
+    calls = [lambda: PSFNetLens("lenses/rf50mm/lens_web.json"),
+             lambda: basenet.build_basenet(),
+             lambda: factory.get_lens(args),
+             lambda: dfdp_net.run_sample(args),
+             lambda: dfdp_net.main(["--stage", "sample", "--config", CONFIG])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_config_reader_matches_pyyaml(path):
+    # the JAX app's reader is PyYAML's safe_load plus the same two casts
+    assert load_config(path) == _jax_app().config(path)
