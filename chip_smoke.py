@@ -5,18 +5,34 @@
 
 Phases, each printing its elapsed seconds:
   0. device: a CUDA card is required (no CPU fallback); TF32 is switched off
-     for matmuls and convolutions, so the depth net runs in full f32;
-  1. build: the fused DP conv kernel (K2) is compiled with nvcc from
-     sdirt_tpu_torch/csrc/ and its -Xptxas -v report printed;
-  2. kernel vs plain: K2 against its plain PyTorch version on seeded inputs
-     at the serve shape (1x512x768x3, ks 21), a ragged shape and a batch of 2;
+     for matmuls and convolutions, so the depth net, the splat and the PSF
+     MLP run in full f32;
+  1. build: both CUDA kernels (K1 fused trace, K2 fused DP conv) are
+     compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel, and their
+     -Xptxas -v reports printed;
+  2. K2 vs plain: K2 against its plain PyTorch version on seeded inputs at
+     the serve shape (1x512x768x3, ks 21), a ragged shape and a batch of 2;
   3. serve path: ``python -m sdirt_tpu_torch.dfdp_net --stage sample`` on
      real_sample_set/ with the exported weights, through its main(); K2's
      launch count is read around it, and the scores are held against the
      JAX package's CPU numbers (sdirt_tpu_torch/reference/);
-  4. times (CUDA events, after warm-up): K2, its plain version, one render
-     call and one depth-net frame at 512x768;
-  5. the kernels line, then the card's name and power limit, then the
+  4. K2 times (CUDA events, after warm-up): K2, its plain version, one
+     render call and one depth-net frame at 512x768;
+  5. K1 vs plain: the fused trace against its plain PyTorch version on the
+     same rays, rf50mm and rf35mm, at the fit step's bundles (20000 x 64
+     and 2048 x 64 rays) and a ragged one, and through dp_psf_fused with the
+     same pupil samples;
+  6. fit path: ``python -m sdirt_tpu_torch.fit_psfnet`` at the published
+     width (rf50mm, mlp, ks 21, 512x768, bs 64 x 20000 rays, eval 1024 x
+     65536 rays) for 21 steps, through its main(); K1's launch count is
+     read around it, the loss must fall, and the fitted net is loaded into
+     a serve-path PSFNetLens that renders one flat scene;
+  7. shipped surrogate: the fit's lens and eval (K1 ground truth) on the
+     exported F4_PSFNet_mlp, held against the JAX package's CPU numbers
+     (sdirt_tpu_torch/reference/fit_psfnet_jax_cpu.json);
+  8. K1 times (CUDA events, after warm-up): K1 and its plain version at both
+     bundles, trace+splat rays/s at bench.py's shape, a train step, an eval;
+  9. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -34,7 +50,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-BUDGET_S = 540.0
+BUDGET_S = 600.0
 KS = 21
 # Both versions sum the same exact f32 products of bf16 inputs in the same
 # order; they differ in how the tap sums are reduced and in the divide
@@ -44,6 +60,19 @@ KS = 21
 KERNEL_TOL = 1e-3
 PSNR_TOL_DB = 0.1      # the JAX package's render-variant gate
 DEPTH_TOL = 0.005
+# K1 vs its plain version, rays live in both: the JAX package's own
+# fused-vs-specialized gate (tests/test_fused_trace.py); at most 1 in 10^5
+# rays may differ in validity; PSF L1 per point, ckpt/FUSED_TRACE.json's gate
+K1_PXY_TOL = 5e-4               # mm
+K1_XTAN_TOL = 1e-4
+K1_RA_MISMATCH = 1e-5           # of all rays
+PSF_L1_MEAN_TOL = 1e-4
+PSF_L1_MAX_TOL = 1e-3
+FIT_ARGS = ["--device", "cuda", "--lens", "lenses/rf50mm/lens_web.json",
+            "--model", "mlp", "--ks", "21", "--res", "512", "768",
+            "--focus-mm", "-1000", "--bs", "64", "--spp", "20000",
+            "--iters", "20", "--evaluate-every", "10", "--eval-bs", "1024",
+            "--eval-spp", "65536", "--skip-analysis"]
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
 
@@ -80,6 +109,39 @@ def cuda_time_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_profile(fn, reps):
+    """Device time by kernel over reps calls of fn, from torch.profiler's
+    CUDA activity: ([(kernel, launches, ms)], busy ms), largest first; an
+    empty list when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    return rows, sum(r[2] for r in rows)
+
+
+def print_profile(what, rows, busy, reps, wall_ms, top=8):
+    """The largest kernels of a profile, per call, and the device's idle
+    share against wall_ms per call (CUDA events, outside the profiler)."""
+    if not rows:
+        print(f"profile {what}: the profiler recorded no device time (not measured)")
+        return
+    print(f"profile {what}: device busy {busy / reps:.3f} ms per call of "
+          f"{wall_ms:.3f} ms (idle share {1 - busy / reps / wall_ms:.1%}), "
+          f"{sum(r[1] for r in rows) / reps:.0f} kernels per call; largest:")
+    for key, count, ms in rows[:top]:
+        print(f"    {ms / reps:9.4f} ms  {count / reps:6.1f}x  {key[:90]}")
 
 
 def conv_inputs(gen, n, h, w, c, ks):
@@ -127,6 +189,67 @@ def k2_bound_ms(n, h, w, c, ks):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_bound_ms(n_rays, ops_per_ray):
+    """Least time for the trace: 7 f32 read and 4 written per ray, or its
+    f32 operations (fused_trace.ops_per_ray, counted from the CUDA source),
+    whichever is larger."""
+    t_bytes = n_rays * 11 * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = n_rays * ops_per_ray / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bench_points(rng, n):
+    """bench.py's field points: x, y uniform on [-1, 1], depth uniform on
+    [-20000, -200] mm."""
+    return np.stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                     -(rng.uniform(0, 1, n) * 19800 + 200)], -1).astype(np.float32)
+
+
+def k1_vs_plain(lens, rng, gen):
+    """K1 against its plain version on the same rays and through
+    dp_psf_fused with the same pupil samples. Returns (max |px/py diff|,
+    max |x_tan diff|, ra mismatches, rays, psf L1 mean, psf L1 max)."""
+    from sdirt_tpu_torch.dp import fused_trace
+    from sdirt_tpu_torch.dp.psf import dp_psf_fused, lens_scalars, object_points
+    from sdirt_tpu_torch.optics.sampling import sample_disk, sample_from_points
+
+    plan = fused_trace.make_fused_plan(lens)
+    sc = lens_scalars(lens)
+    worst = [0.0, 0.0, 0, 0]
+    for spp, n, shrink in ((20000, 64, 1.0), (2048, 64, 0.25), (1999, 37, 1.0)):
+        pts = torch.from_numpy(bench_points(rng, n)).cuda()
+        rays = sample_from_points(object_points(pts, sc), spp, sc["pupilz"],
+                                  sc["pupilr"] * shrink, gen)
+        got = fused_trace.fused_trace_sensor(rays, lens.d_sensor, plan)
+        ref = fused_trace.fused_trace_sensor_ref(rays, lens.d_sensor, plan)
+        torch.cuda.synchronize()
+        live = (got[3] > 0) & (ref[3] > 0)
+        mism = int((got[3] != ref[3]).sum())
+        dxy = max(float((got[i] - ref[i]).abs()[live].max()) for i in (0, 1))
+        dxt = float((got[2] - ref[2]).abs()[live].max())
+        print(f"  K1 vs plain {spp}x{n} (pupil x{shrink}): live {float(live.float().mean()):.4f}, "
+              f"ra mismatches {mism} of {rays.ra.numel()}, max |px/py diff| "
+              f"{dxy:.3e} mm, max |x_tan diff| {dxt:.3e}")
+        if not (dxy <= K1_PXY_TOL and dxt <= K1_XTAN_TOL
+                and mism <= K1_RA_MISMATCH * rays.ra.numel()):
+            raise RuntimeError(f"K1 disagrees with its plain version at {spp}x{n}")
+        worst = [max(worst[0], dxy), max(worst[1], dxt), worst[2] + mism,
+                 worst[3] + rays.ra.numel()]
+    pts = torch.from_numpy(bench_points(rng, 64)).cuda()
+    xy_main = sample_disk(gen, (20000,), sc["pupilr"], "cuda")
+    xy_chief = sample_disk(gen, (2048,), sc["pupilr"] * 0.25, "cuda")
+    psfs = [dp_psf_fused(pts, None, sc, plan, spp=20000, spp_chief=2048, ks=KS,
+                         pupil_main=xy_main, pupil_chief=xy_chief, trace=trace)
+            for trace in (None, fused_trace.fused_trace_sensor_ref)]
+    l1 = torch.stack([(a - b).abs().mean((-1, -2)) for a, b in zip(*psfs)])
+    l1_mean, l1_max = float(l1.mean()), float(l1.max())
+    print(f"  PSF via dp_psf_fused, K1 vs plain, 64 points x 20000 rays: "
+          f"L1 mean {l1_mean:.3e}, max {l1_max:.3e}")
+    if not (l1_mean <= PSF_L1_MEAN_TOL and l1_max <= PSF_L1_MAX_TOL):
+        raise RuntimeError("K1's PSFs disagree with the plain version's")
+    return (*worst, l1_mean, l1_max)
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -136,8 +259,16 @@ def main():
     t = time.perf_counter()
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on the card only")
-    from sdirt_tpu_torch import dfdp_net
+    from sdirt_tpu_torch import dfdp_net, fit_psfnet
+    from sdirt_tpu_torch.dp import fused_trace
+    from sdirt_tpu_torch.dp.psf import dp_psf_fused, lens_scalars, object_points
+    from sdirt_tpu_torch.optics.lens import Lens
+    from sdirt_tpu_torch.optics.sampling import sample_from_points
+    from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+    from sdirt_tpu_torch.psfnet.train import (create_train_state, make_eval_fn,
+                                              make_train_step)
     from sdirt_tpu_torch.render import fused_conv
+    from sdirt_tpu_torch.utils import kernels
     from sdirt_tpu_torch.render.mlp_fast import mlp_psf_tapmajor
     from sdirt_tpu_torch.render.pipeline import query_points
     from sdirt_tpu_torch.render.camera import degamma
@@ -155,13 +286,17 @@ def main():
 
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
-    fused_conv.build(timeout=left_s())
-    for line in fused_conv.build_log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling")):
-            print(f"ptxas: {line.strip()}")
+    kernels.build(timeout=left_s())
+    print(f"nvcc: {len(kernels.SOURCES)} sources in parallel, "
+          f"{kernels.build_seconds:.2f} s")
+    for src, log in kernels.build_log.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("registers", "spill", "smem", "stack",
+                                       "Compiling")):
+                print(f"ptxas {src}: {line.strip()}")
     phase("1 build", t)
 
-    # -- 2. kernel vs plain --------------------------------------------------
+    # -- 2. K2 vs plain -------------------------------------------------------
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     diffs = {}
@@ -175,7 +310,7 @@ def main():
         if not diffs[shape] <= KERNEL_TOL:
             raise RuntimeError(f"K2 disagrees with its plain version at {shape}")
         del img, psf, got, ref
-    phase("2 kernel vs plain", t)
+    phase("2 K2 vs plain", t)
 
     # -- 3. serve path -------------------------------------------------------
     t = time.perf_counter()
@@ -213,7 +348,7 @@ def main():
     print(f"serve path host seconds: {result['seconds']}")
     phase("3 serve path", t)
 
-    # -- 4. times ------------------------------------------------------------
+    # -- 4. K2 times ---------------------------------------------------------
     t = time.perf_counter()
     args = dfdp_net.load_config("configs/dfdp_by_sdirt_rf50mm.yml")
     _, lens = dfdp_net.get_lens(args, device="cuda")
@@ -251,13 +386,141 @@ def main():
           "varying per-pixel convolution")
     print(f"bf16 PSF MLP (torch.mm): {mlp_ms:.3f} ms; render call: "
           f"{render_ms:.3f} ms; depth-net frame 512x768: {depth_ms:.3f} ms")
-    phase("4 times", t)
+    phase("4 K2 times", t)
 
-    # -- 5. result -----------------------------------------------------------
-    if fused_conv.builds != 1:
-        raise RuntimeError(f"K2 was built {fused_conv.builds} times in one process")
+    # -- 5. K1 vs plain ------------------------------------------------------
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k1_check = {}
+    for lens_name in ("rf50mm", "rf35mm"):
+        lens = Lens(f"lenses/{lens_name}/lens_web.json", sensor_res=(512, 768),
+                    device="cuda")
+        print(f"K1 on {lens_name} ({lens.stack.num_surfaces} surfaces, "
+              f"{fused_trace.ops_per_ray(fused_trace.make_fused_plan(lens))} "
+              "f32 operations per ray):")
+        k1_check[lens_name] = k1_vs_plain(lens, rng, gen)
+    phase("5 K1 vs plain", t)
+
+    # -- 6. fit path ---------------------------------------------------------
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        fused_trace.launches = 0
+        fit = fit_psfnet.main(FIT_ARGS + ["--result-dir", out])
+        k1_launches = fused_trace.launches
+        print(f"K1 launches on the fit path: {k1_launches}")
+        if k1_launches <= 0:
+            raise RuntimeError("the fit path did not launch K1")
+        losses = np.array(fit["losses"])
+        print(f"fit: {len(losses)} steps, losses {losses[0]:.6f} -> "
+              f"{losses[-1]:.6f} (first 5 mean {losses[:5].mean():.6f}, last 5 "
+              f"mean {losses[-5:].mean():.6f}); evals {fit['evals']}; d_sensor "
+              f"{fit['d_sensor']:.6f}; host seconds {fit['seconds']}")
+        if not (np.isfinite(losses).all() and losses[-5:].mean() < losses[:5].mean()):
+            raise RuntimeError("the fit's loss is not finite or did not fall")
+        if not all(np.isfinite(e[1:]).all() for e in fit["evals"]):
+            raise RuntimeError("the fit's eval is not finite")
+        fitted = PSFNetLens("lenses/rf50mm/lens_web.json", kernel_size=KS,
+                            sensor_res=(512, 768), device="cuda")
+        fitted.load_net(os.path.join(out, "psfnet_mlp.npz"))
+    f4, f20, depth = dfdp_net.get_flat_sample_set(args)[0]
+    dof = fitted.render(f20[None, :3], -depth[None] * 1e3, None)
+    print(f"render with the fitted net: {tuple(dof.shape)}, range "
+          f"[{float(dof.min()):.4f}, {float(dof.max()):.4f}]")
+    if dof.shape != (1, 6, 512, 768) or not bool(torch.isfinite(dof).all()):
+        raise RuntimeError("the fitted surrogate does not render")
+    del fitted, dof
+    phase("6 fit path", t)
+
+    # -- 7. shipped surrogate vs JAX -----------------------------------------
+    t = time.perf_counter()
+    with open(os.path.join(ROOT, "sdirt_tpu_torch", "reference",
+                           "fit_psfnet_jax_cpu.json")) as f:
+        fit_ref = json.load(f)
+    lens = PSFNetLens("lenses/rf50mm/lens_web.json", kernel_size=KS,
+                      sensor_res=(512, 768), device="cuda")
+    lens.load_net("sdirt_tpu_torch/weights/rf50mm/F4_PSFNet_mlp.npz")
+    lens.refocus(-1000.0 + lens.d_sensor)
+    eval_fn = make_eval_fn(lens, bs=1024, spp=65536, ks=KS)
+    l1, l2 = (float(v) for v in eval_fn(lens.net, gen))
+    for k, v in (("d_sensor", lens.d_sensor), ("eval_l1", l1), ("eval_l2", l2)):
+        st = fit_ref["stats"][k]
+        d = v - st["mean"]
+        print(f"shipped surrogate {k}: {v!r} (JAX CPU mean {st['mean']!r}, "
+              f"spread {st['spread']:.3e}, diff {d:+.3e}, tolerance {st['tolerance']:.3e})")
+        if not (np.isfinite(v) and abs(d) <= st["tolerance"]):
+            raise RuntimeError(f"shipped surrogate {k} off the JAX reference")
+    phase("7 shipped surrogate", t)
+
+    # -- 8. K1 and fit times -------------------------------------------------
+    t = time.perf_counter()
+    plan = fused_trace.make_fused_plan(lens)
+    sc = lens_scalars(lens)
+    pts = torch.from_numpy(bench_points(rng, 64)).cuda()
+    k1_ms, plain1_ms = {}, {}
+    for tag, spp, shrink in (("main", 20000, 1.0), ("chief", 2048, 0.25)):
+        r = sample_from_points(object_points(pts, sc), spp, sc["pupilz"],
+                               sc["pupilr"] * shrink, gen)
+        r = r.replace(o=r.o.contiguous())
+        k1_ms[tag] = cuda_time_ms(
+            lambda: fused_trace.fused_trace_sensor(r, lens.d_sensor, plan), 50)
+        plain1_ms[tag] = cuda_time_ms(
+            lambda: fused_trace.fused_trace_sensor_ref(r, lens.d_sensor, plan), 5, 1)
+    ops = fused_trace.ops_per_ray(plan)
+    k1_bound, k1_by = k1_bound_ms(20000 * 64, ops)
+    chief_bound, chief_by = k1_bound_ms(2048 * 64, ops)
+    with torch.no_grad():
+        psf_ms = cuda_time_ms(lambda: dp_psf_fused(
+            pts, gen, sc, plan, spp=20000, spp_chief=2048, ks=KS, chunk=2048), 20)
+    state = create_train_state(lens.net, 1e-4, 90000)
+    step_fn = make_train_step(lens, bs=64, spp=20000, ks=KS)
+    step_ms = cuda_time_ms(lambda: step_fn(state, gen), 20)
+    eval_ms = cuda_time_ms(lambda: eval_fn(lens.net, gen), 2, 1)
+    print(f"K1 fused_trace_sensor ({ops} f32 operations per ray): main 20000x64 "
+          f"{k1_ms['main']:.4f} ms per launch (bound {k1_bound:.4f} ms by {k1_by}, "
+          f"{k1_bound / k1_ms['main']:.1%} of it); chief 2048x64 {k1_ms['chief']:.4f} ms "
+          f"(bound {chief_bound:.4f} ms by {chief_by})")
+    print(f"K1 plain version: main {plain1_ms['main']:.3f} ms, chief "
+          f"{plain1_ms['chief']:.3f} ms")
+    print("library_ms: none -- no PyTorch call traces rays through a lens")
+    print(f"trace+splat (dp_psf_fused, 64 points x (20000 + 2048) rays, ks {KS}): "
+          f"{psf_ms:.3f} ms, {64 * 22048 / psf_ms * 1e3:.4e} rays/s")
+    print(f"fit: train step {step_ms:.3f} ms, eval 1024 x 65536 rays "
+          f"{eval_ms:.3f} ms (CUDA events)")
+    k1_dev = {}
+    for tag, spp, shrink in (("main", 20000, 1.0), ("chief", 2048, 0.25)):
+        r = sample_from_points(object_points(pts, sc), spp, sc["pupilz"],
+                               sc["pupilr"] * shrink, gen)
+        r = r.replace(o=r.o.contiguous())
+        rows, _ = device_profile(
+            lambda: fused_trace.fused_trace_sensor(r, lens.d_sensor, plan), 20)
+        k1_rows = [x for x in rows if "fused_trace_kernel" in x[0]]
+        if k1_rows:
+            k1_dev[tag] = k1_rows[0][2] / k1_rows[0][1]
+            bound = k1_bound if tag == "main" else chief_bound
+            print(f"K1 {tag} bundle, device time per launch (profiler): "
+                  f"{k1_dev[tag]:.4f} ms, {bound / k1_dev[tag]:.1%} of its bound "
+                  f"(CUDA events over wrapper calls: {k1_ms[tag]:.4f} ms)")
+    for what, fn, reps, wall in (("train step", lambda: step_fn(state, gen), 10, step_ms),
+                                 ("eval", lambda: eval_fn(lens.net, gen), 1, eval_ms)):
+        print_profile(what, *device_profile(fn, reps), reps, wall)
+    phase("8 K1 times", t)
+
+    # -- 9. result -----------------------------------------------------------
+    if kernels.builds != 1:
+        raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, *diffs.values()])
+    k1_err = max(v[0] for v in k1_check.values())
     print(json.dumps({"kernels": [{
+        "name": "fused_trace_sensor", "route": "cuda",
+        "source": "sdirt_tpu_torch/csrc/fused_trace.cu",
+        "replaces": "sdirt_tpu/dp/fused_trace.py:310",
+        "launches": k1_launches, "max_abs_err": k1_err,
+        "ra_mismatches": sum(v[2] for v in k1_check.values()),
+        "psf_l1_max": max(v[5] for v in k1_check.values()),
+        "ms": k1_dev.get("main", k1_ms["main"]), "plain_ms": plain1_ms["main"],
+        "bound_ms": k1_bound,
+        "bound_by": k1_by, "library_ms": None}, {
         "name": "fused_dp_conv_tapmajor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_dp_conv.cu",
         "replaces": "sdirt_tpu/render/fused_conv_pallas.py:81",

@@ -1,23 +1,30 @@
-"""PSF surrogate: DP-PSF prediction and a render-only PSFNetLens
-(PyTorch counterpart of sdirt_tpu/psfnet/surrogate.py).
+"""PSFNetLens: a ray-traced lens with an implicit dual-pixel PSF surrogate
+network (PyTorch counterpart of sdirt_tpu/psfnet/surrogate.py).
 
 The network maps normalised (x, y, z) to the LEFT DP PSF; the right PSF is
 the network queried at -x and mirrored in kx. The reference's behavioural
-quirks are kept: the sensor distance is pinned per lens (62.25 mm for
-rf50mm, 80.447 for rf35mm) without recomputing fov or f-number, and the
-depth normalisation maps -DMIN mm to z = 0 and -DMAX mm to z = 1.
+quirks are kept:
+  * the sensor distance is pinned per lens (62.25 mm for rf50mm, 80.447 for
+    rf35mm) without recomputing fov or f-number;
+  * the focus prior is pinned to ~1 m;
+  * PSFs are max-normalised for fitting, sum-normalised in ``pred``;
+  * the depth normalisation maps -DMIN mm to z = 0 and -DMAX mm to z = 1.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
-from ..core.constants import D_SENSOR, DMAX, DMIN
-from ..utils.device import resolve_device
-from ..utils.weights import load_state
+from ..core.constants import D_SENSOR, DMAX, DMIN, GEO_SPP
+from ..dp.psf import compute_psf
+from ..optics.lens import Lens
+from ..utils.weights import load_state, torch_to_flax
 from .arch import build_psfnet
+
+DEFAULT_FOC_OFFSETS = np.array([-999.9, -1000.0, -1000.1], np.float32)
 
 
 def pred_psf(fn, inp, ks: int):
@@ -35,44 +42,80 @@ def pred_psf(fn, inp, ks: int):
     return psf / (psf.sum((-1, -2), keepdim=True) + 1e-9)
 
 
-class PSFNetLens:
-    """Render-only lens with an implicit DP-PSF surrogate.
-
-    The JAX class derives from the ray-traced ``Lens`` (optics, pupils,
-    ray-traced PSFs); that base class comes with the optics slice. What the
-    serve path needs does not trace rays: the pinned sensor distance, the
-    depth normalisation, the surrogate net and the render.
-    """
+class PSFNetLens(Lens):
+    """Lens + trained implicit PSF representation."""
 
     def __init__(self, filename: str, model_name: str = "mlp",
                  kernel_size: int = 11, sensor_res=(512, 512), seed: int = 0,
                  device="cuda"):
-        self.device = resolve_device(device)
+        super().__init__(filename=filename, sensor_res=sensor_res, device=device)
         self.kernel_size = kernel_size
         self.model_name = model_name
-        self.sensor_res = tuple(sensor_res)
         # as in the JAX class: d_max = -DMAX, d_min = -DMIN, so z runs from
         # 0 at -200 mm to 1 at -20 m
         self.d_max = -DMAX
         self.d_min = -DMIN
+        # d_sensor override WITHOUT post_computation: hfov / fnum keep the
+        # values of the JSON's sensor distance
         lens = [k for k in D_SENSOR if k in filename]
         if not lens:
             raise ValueError("Lens filename must name rf35mm or rf50mm")
         self.d_sensor = D_SENSOR[lens[0]]
+        self.foc_d_arr = DEFAULT_FOC_OFFSETS + self.d_sensor
+        self.foc_z_arr = ((self.foc_d_arr - self.d_min)
+                          / (self.d_max - self.d_min)).astype(np.float32)
+        self.foc_d = np.array([-1000.0], np.float32) + self.d_sensor
         gen = torch.Generator().manual_seed(seed)
         self.net = build_psfnet(model_name, kernel_size).init_(gen)
         self.net = self.net.to(self.device).eval()
 
+    def set_focus_prior(self, focus_mm: float):
+        """Re-centre the fit-time focus prior on a new focus distance
+        (negative object distance in mm). Call after refocus(), so that
+        d_sensor is the fit-time value."""
+        offsets = DEFAULT_FOC_OFFSETS - (-1000.0) + float(focus_mm)
+        self.foc_d_arr = (offsets + self.d_sensor).astype(np.float32)
+        self.foc_z_arr = ((self.foc_d_arr - self.d_min)
+                          / (self.d_max - self.d_min)).astype(np.float32)
+        self.foc_d = np.array([float(focus_mm)], np.float32) + self.d_sensor
+
+    # -----------------------------------------------------------------
+    # Depth normalisation
+    # -----------------------------------------------------------------
     def depth2z(self, depth):
         z = (depth - self.d_min) / (self.d_max - self.d_min)
         return torch.clamp(z, 0.0, 1.0)
 
+    def z2depth(self, z):
+        return z * (self.d_max - self.d_min) + self.d_min
+
+    # -----------------------------------------------------------------
+    # Ray-traced ground truth, network prediction, weights
+    # -----------------------------------------------------------------
+    def psf(self, points, ks=None, spp=GEO_SPP, generator=None, both=False):
+        """Ray-traced left DP PSF (per-surface trace); points: [N, 3]
+        normalised x, y + depth z in mm."""
+        ks = self.kernel_size if ks is None else ks
+        return compute_psf(self, points, generator=generator, spp=spp, ks=ks,
+                           both=both)
+
+    def pred(self, inp):
+        """[..., 3] -> [..., 2, ks, ks] (left net / mirrored right)."""
+        inp = torch.as_tensor(inp, dtype=torch.float32, device=self.device)
+        return pred_psf(self.net, inp, self.kernel_size)
+
     def load_net(self, path: str):
-        """Load an exported ``.npz`` tree (scripts/export_torch_weights.py)."""
+        """Load an exported ``.npz`` tree (scripts/export_torch_weights.py,
+        or ``save_net``)."""
         if not path.endswith(".npz") or not os.path.exists(path):
             raise FileNotFoundError(f"no exported surrogate at {path}")
         load_state(self.net, path)
         return self
+
+    def save_net(self, path: str):
+        """Write the net as a flat Flax-layout ``.npz`` tree, the layout
+        ``load_net`` and the serve path read."""
+        np.savez(path, **torch_to_flax(self.net.state_dict()))
 
     @torch.no_grad()
     def render(self, img, depth, foc_dist, variant: str = "fused"):
@@ -90,3 +133,37 @@ class PSFNetLens:
                          d_sensor=self.d_sensor, d_min=self.d_min,
                          d_max=self.d_max, ks=self.kernel_size,
                          variant=variant)
+
+    # -----------------------------------------------------------------
+    # Fit-quality evaluation
+    # -----------------------------------------------------------------
+    @torch.no_grad()
+    def compare_psf(self, spp=GEO_SPP * 100, generator=None, save_path=None):
+        """Ray-traced vs predicted DP PSFs at the field points 0, 0.4, 0.8
+        and the depths -500 and -20000 mm.
+
+        Returns {'traced': [2 depths, 2 views, 3 fields, ks, ks],
+        'pred': [2 depths, 3 fields, 2 views, ks, ks], 'depths'} as numpy,
+        also written to ``save_path`` (.npz) when given.
+        """
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        xy = np.array([0.0, 0.4, 0.8], np.float32)
+        out = {"traced": [], "pred": [], "depths": [-500.0, -20000.0]}
+        for depth0 in out["depths"]:
+            depth = depth0 + self.d_sensor
+            pts = np.stack([xy, xy, np.full_like(xy, depth)], -1)
+            psfl = self.psf(pts, spp=spp, generator=generator).cpu().numpy()
+            pts_m = pts.copy()
+            pts_m[:, 0] *= -1
+            psfr = self.psf(pts_m, spp=spp, generator=generator).cpu().numpy()[..., ::-1]
+            out["traced"].append(np.stack([psfl, psfr], axis=0))
+            z = float(np.clip((depth - self.d_min) / (self.d_max - self.d_min), 0, 1))
+            inp = np.stack([xy, xy, np.full_like(xy, z)], -1)
+            out["pred"].append(self.pred(inp).cpu().numpy())
+        out["traced"] = np.stack(out["traced"])
+        out["pred"] = np.stack(out["pred"])
+        out["depths"] = np.array(out["depths"], np.float32)
+        if save_path is not None:
+            np.savez(save_path, **out)
+        return out

@@ -3,9 +3,9 @@
 Hopper counterpart of sdirt_tpu/render/fused_conv_pallas.py
 (fused_dp_conv_tapmajor). The CUDA source is ../csrc/fused_dp_conv.cu; it is
 compiled with nvcc into a shared library with a plain C interface at first
-use in a process and loaded with ctypes. Its header comment has the design
-and the bound (memory: the 0.69 GB bf16 PSF read at the serve shape,
-0.21 ms on an H100 SXM).
+use in a process and loaded with ctypes (utils/kernels.py). Its header
+comment has the design and the bound (memory: the 0.69 GB bf16 PSF read at
+the serve shape, 0.21 ms on an H100 SXM).
 
 On a CUDA tensor the wrapper launches the kernel or raises; only tensors on
 the CPU take the plain PyTorch version, ``fused_dp_conv_tapmajor_ref``, which
@@ -15,63 +15,25 @@ is also what the kernel is held against on the card.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
+import functools
 
 import torch
 import torch.nn.functional as F
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_dp_conv.cu")
-BUILD_DIR = os.path.join(_PKG, "csrc", "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+from ..utils import kernels
+
 CHANNELS = (1, 3)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 # launches of the CUDA kernel in this process (not of the plain version)
 launches = 0
-# nvcc builds in this process: build() compiles once and caches the library
-builds = 0
-# nvcc's report of the last build (the -Xptxas -v lines: registers, spills)
-build_log = ""
-_lib = None
 
 
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
-            return os.path.join(root, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the fused DP conv "
-                           "kernel is compiled at first use on the card's "
-                           "machine")
-    return found
-
-
-def build(timeout: float = 600.0):
-    """Compile the kernel (once per process, within ``timeout`` seconds)
-    and load it; returns the ctypes library."""
-    global _lib, build_log, builds
-    if _lib is not None:
-        return _lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, "fused_dp_conv.so")
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    lib.fused_dp_conv_tapmajor.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.fused_dp_conv_tapmajor.restype = ctypes.c_int
-    build_log = proc.stdout + proc.stderr
-    builds += 1
-    _lib = lib
-    return lib
+@functools.cache
+def _kernel():
+    fn = kernels.library("fused_dp_conv").fused_dp_conv_tapmajor
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    return fn
 
 
 def _check(img, psf_tm, ks: int):
@@ -132,7 +94,7 @@ def fused_dp_conv_tapmajor(img, psf_tm, ks: int):
     n, h, w, c = img.shape
     if c not in CHANNELS:
         raise ValueError(f"the kernel takes C in {CHANNELS}, got {c}")
-    lib = build()
+    fn = _kernel()
     pad = (ks - 1) // 2
     img_p = F.pad(img.permute(0, 3, 1, 2), (pad, pad, pad, pad),
                   mode="replicate").to(torch.bfloat16).contiguous()
@@ -140,9 +102,8 @@ def fused_dp_conv_tapmajor(img, psf_tm, ks: int):
     out_r = torch.empty_like(out_l)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fused_dp_conv_tapmajor(img_p.data_ptr(), psf_tm.data_ptr(),
-                                        out_l.data_ptr(), out_r.data_ptr(),
-                                        n, h, w, c, ks, stream)
+        rc = fn(img_p.data_ptr(), psf_tm.data_ptr(), out_l.data_ptr(),
+                out_r.data_ptr(), n, h, w, c, ks, stream)
     if rc != 0:
         raise RuntimeError(f"fused_dp_conv_tapmajor launch failed: CUDA error {rc}")
     launches += 1

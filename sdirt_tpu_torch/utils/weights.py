@@ -101,10 +101,11 @@ def load_npz(path: str) -> dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def load_state(module: torch.nn.Module, path: str) -> torch.nn.Module:
-    """Load an exported ``.npz`` tree into ``module`` (strict: every
+def load_state(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Load a flat Flax tree into ``module``: the path of an exported
+    ``.npz``, or the tree itself as a dict of numpy leaves (strict: every
     parameter and running statistic must be present, and nothing else)."""
-    state = flax_to_torch(load_npz(path))
+    state = flax_to_torch(load_npz(tree) if isinstance(tree, str) else tree)
     own = module.state_dict()
     for k, v in own.items():
         if k.endswith("num_batches_tracked"):

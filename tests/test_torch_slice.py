@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from sdirt_tpu_torch import dfdp_net
+from sdirt_tpu_torch import dfdp_net, fit_psfnet
 from sdirt_tpu_torch.dfdp import basenet, factory
+from sdirt_tpu_torch.optics.lens import Lens
 from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
 from sdirt_tpu_torch.utils.config import load_config
 from sdirt_tpu_torch.utils.device import resolve_device
@@ -111,13 +112,17 @@ def test_no_forbidden_imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-ENTRY_POINTS = [PSFNetLens.__init__, basenet.build_basenet, factory.get_lens,
-                dfdp_net.run_sample, resolve_device]
+ENTRY_POINTS = [PSFNetLens.__init__, Lens.__init__, basenet.build_basenet,
+                factory.get_lens, dfdp_net.run_sample, resolve_device]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_fit_entry_point_defaults_to_the_card():
+    assert fit_psfnet.parse_args([]).device == "cuda"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -129,7 +134,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: basenet.build_basenet(),
              lambda: factory.get_lens(args),
              lambda: dfdp_net.run_sample(args),
-             lambda: dfdp_net.main(["--stage", "sample", "--config", CONFIG])]
+             lambda: dfdp_net.main(["--stage", "sample", "--config", CONFIG]),
+             lambda: Lens("lenses/rf35mm/lens_web.json"),
+             lambda: fit_psfnet.main(["--skip-analysis", "--iters", "0"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
