@@ -8,8 +8,9 @@ Phases, each printing its elapsed seconds:
      for matmuls and convolutions, so the depth net, the splat and the PSF
      MLP run in full f32;
   1. build: both CUDA kernels (K1 fused trace, K2 fused DP conv) are
-     compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel, and their
-     -Xptxas -v reports printed;
+     compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel with K1's
+     probe kernels; their -Xptxas -v reports, K1's SASS instruction count
+     per ray (rf50mm, rf35mm) and K2's shared memory per launch printed;
   2. K2 vs plain: K2 against its plain PyTorch version on seeded inputs at
      the serve shape (1x512x768x3, ks 21), a ragged shape and a batch of 2;
   3. serve path: ``python -m sdirt_tpu_torch.dfdp_net --stage sample`` on
@@ -31,13 +32,16 @@ Phases, each printing its elapsed seconds:
      exported F4_PSFNet_mlp, held against the JAX package's CPU numbers
      (sdirt_tpu_torch/reference/fit_psfnet_jax_cpu.json);
   8. K1 times (CUDA events, after warm-up): K1 and its plain version at both
-     bundles, trace+splat rays/s at bench.py's shape, a train step, an eval;
+     bundles and at an eval chunk's main bundle (65536 x 128), the wrapper's
+     host time per call, trace+splat rays/s at bench.py's shape, a train
+     step, an eval;
   9. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
 """
 
+import collections
 import json
 import os
 import signal
@@ -75,6 +79,10 @@ FIT_ARGS = ["--device", "cuda", "--lens", "lenses/rf50mm/lens_web.json",
             "--eval-spp", "65536", "--skip-analysis"]
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
+# the first CUDA versions of the kernels (one thread per ray with every
+# operation IEEE and separately rounded; one thread per pixel): device ms on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6
+EARLIER_MS = {"K1 main": 0.1576, "K1 chief": 0.0201, "K2 serve": 0.4715}
 
 T0 = time.perf_counter()
 
@@ -205,6 +213,29 @@ def bench_points(rng, n):
                      -(rng.uniform(0, 1, n) * 19800 + 200)], -1).astype(np.float32)
 
 
+def k1_contracted_everywhere(rays, d_sensor, plan):
+    """K1 launched with n_exact = 0, every surface in the contracted and
+    approximate arithmetic: what the plan's exact surfaces buy, measured.
+    Calls the C entry point directly, so fused_trace.launches is untouched."""
+    import ctypes
+    from sdirt_tpu_torch.core.constants import NEWTON_FAST_ITERS
+    from sdirt_tpu_torch.dp import fused_trace
+
+    st = fused_trace._Plan.from_buffer_copy(
+        fused_trace._plan_arg(plan, NEWTON_FAST_ITERS)._keep)
+    st.n_exact = 0
+    cols = rays.ra.shape[-1]
+    o, d = fused_trace._rows(rays.o, cols), fused_trace._rows(rays.d, cols)
+    out = torch.empty((4, *rays.ra.shape), device="cuda")
+    rc = fused_trace._kernel()(
+        ctypes.addressof(st), o.data_ptr(), o.stride(0), o.stride(1), d.data_ptr(),
+        d.stride(0), d.stride(1), rays.ra.data_ptr(), cols, float(np.float32(d_sensor)),
+        rays.ra.numel(), out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_trace_sensor launch failed: CUDA error {rc}")
+    return out.unbind(0)
+
+
 def k1_vs_plain(lens, rng, gen):
     """K1 against its plain version on the same rays and through
     dp_psf_fused with the same pupil samples. Returns (max |px/py diff|,
@@ -227,9 +258,12 @@ def k1_vs_plain(lens, rng, gen):
         mism = int((got[3] != ref[3]).sum())
         dxy = max(float((got[i] - ref[i]).abs()[live].max()) for i in (0, 1))
         dxt = float((got[2] - ref[2]).abs()[live].max())
+        everywhere = k1_contracted_everywhere(rays, lens.d_sensor, plan)
+        mism_all = int((everywhere[3] != ref[3]).sum())
         print(f"  K1 vs plain {spp}x{n} (pupil x{shrink}): live {float(live.float().mean()):.4f}, "
               f"ra mismatches {mism} of {rays.ra.numel()}, max |px/py diff| "
-              f"{dxy:.3e} mm, max |x_tan diff| {dxt:.3e}")
+              f"{dxy:.3e} mm, max |x_tan diff| {dxt:.3e}; contracted through the "
+              f"stop as well: {mism_all} ra mismatches")
         if not (dxy <= K1_PXY_TOL and dxt <= K1_XTAN_TOL
                 and mism <= K1_RA_MISMATCH * rays.ra.numel()):
             raise RuntimeError(f"K1 disagrees with its plain version at {spp}x{n}")
@@ -248,6 +282,114 @@ def k1_vs_plain(lens, rng, gen):
     if not (l1_mean <= PSF_L1_MEAN_TOL and l1_max <= PSF_L1_MAX_TOL):
         raise RuntimeError("K1's PSFs disagree with the plain version's")
     return (*worst, l1_mean, l1_max)
+
+
+PROBE_FIELDS = ("path", "newton", "has_c", "n_ai", "loose", "tight", "vrule", "skip")
+# The plain version's arithmetic on every surface, for the probes: Exact's
+# separately rounded operations with the polished solves IEEE as well.
+PROBE_IEEE = r"""
+struct Ieee {
+  float v;
+  __device__ Ieee(float x = 0.0f) : v(x) {}
+};
+__device__ __forceinline__ Ieee operator+(Ieee a, Ieee b) { return __fadd_rn(a.v, b.v); }
+__device__ __forceinline__ Ieee operator-(Ieee a, Ieee b) { return __fsub_rn(a.v, b.v); }
+__device__ __forceinline__ Ieee operator*(Ieee a, Ieee b) { return __fmul_rn(a.v, b.v); }
+__device__ __forceinline__ Ieee operator-(Ieee a) { return -a.v; }
+__device__ __forceinline__ bool operator<(Ieee a, Ieee b) { return a.v < b.v; }
+__device__ __forceinline__ bool operator>(Ieee a, Ieee b) { return a.v > b.v; }
+__device__ __forceinline__ bool operator<=(Ieee a, Ieee b) { return a.v <= b.v; }
+__device__ __forceinline__ bool operator>=(Ieee a, Ieee b) { return a.v >= b.v; }
+__device__ __forceinline__ float value(Ieee x) { return x.v; }
+__device__ __forceinline__ Ieee abs_(Ieee x) { return fabsf(x.v); }
+__device__ __forceinline__ Ieee rcp(Ieee x) { return __frcp_rn(x.v); }
+__device__ __forceinline__ Ieee sqrt_(Ieee x) { return __fsqrt_rn(x.v); }
+namespace {  // where fused_trace.cu declares the solve helpers
+template <> __device__ Ieee seed_sqrt<Ieee>(Ieee x) { return __fsqrt_rn(x.v); }
+template <> __device__ Ieee half_rcp<Ieee>(Ieee x) { return __fdiv_rn(0.5f, x.v); }
+template <> __device__ Ieee step_div<Ieee>(Ieee f, Ieee df) { return __fdiv_rn(f.v, df.v); }
+}  // namespace
+#define LOAD float* p = io + 7 * (blockIdx.x * blockDim.x + threadIdx.x); \
+  Ray r{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
+#define STORE p[0] = r.ox; p[1] = r.oy; p[2] = r.oz; p[3] = r.dx; p[4] = r.dy; \
+  p[5] = r.dz; p[6] = r.ra;
+extern "C" __global__ void probe_base(const __grid_constant__ Plan plan, float* io) { LOAD STORE }
+extern "C" __global__ void probe_sensor(const __grid_constant__ Plan plan, float* io) {
+  LOAD float px, py, xt; to_sensor(r, plan.s[0].d, px, py, xt);
+  r.ox = px; r.oy = py; r.oz = xt; STORE }
+"""
+
+
+def k1_surface_kinds(plan, mode):
+    """Per surface of a plan, its probe key: the flags of csrc/fused_trace.cu
+    Surf and the scalar type it is traced in ('Ieee' for the plain version's
+    arithmetic everywhere, else as the kernel does)."""
+    from sdirt_tpu_torch.dp import fused_trace
+
+    n_exact = fused_trace.exact_surfaces(plan)
+    return [tuple(s[k] for k in PROBE_FIELDS)
+            + ("Ieee" if mode == "plain" else ("Exact" if i < n_exact else "float"),)
+            for i, s in enumerate(fused_trace._surface_table(plan))]
+
+
+def start_k1_probes(plans, build_dir):
+    """Write and start compiling (nvcc -cubin, in the background) one probe
+    kernel per surface kind of the plans: it traces one ray through one
+    surface with the flags compiled in, so its SASS is that kind's
+    instructions per ray. Returns (process, cubin, {key: kernel name})."""
+    from sdirt_tpu_torch.core.constants import NEWTON_FAST_ITERS
+    from sdirt_tpu_torch.utils import kernels
+
+    keys = sorted({k for plan in plans for mode in ("plain", "shipped")
+                   for k in k1_surface_kinds(plan, mode)})
+    names = {k: f"probe_{i}" for i, k in enumerate(keys)}
+    lines = [f'#include "{os.path.join(kernels.CSRC, "fused_trace.cu")}"', PROBE_IEEE]
+    for k, name in names.items():
+        sets = " ".join(f"s.{f} = {v};" for f, v in zip(PROBE_FIELDS, k[:-1]))
+        lines.append(f'extern "C" __global__ void {name}(const __grid_constant__ Plan plan, '
+                     f"float* io) {{ LOAD Surf s = plan.s[0]; {sets} "
+                     f"trace_surface<{k[-1]}>(s, {NEWTON_FAST_ITERS}, r); STORE }}")
+    os.makedirs(build_dir, exist_ok=True)
+    src = os.path.join(build_dir, "fused_trace_probes.cu")
+    with open(src, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    cubin = os.path.join(build_dir, "fused_trace_probes.cubin")
+    proc = subprocess.Popen([kernels.nvcc(), *kernels.ARCH_FLAGS, "-cubin", "-o", cubin, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, cubin, names
+
+
+def k1_sass_report(plans, probes):
+    """Print K1's SASS: the built kernel's static count, and per ray, for
+    each lens, the probes' fast paths summed over its surfaces, with the
+    plain version's arithmetic everywhere and as shipped. Returns
+    {lens: (plain per ray, shipped per ray)} instruction totals."""
+    from sdirt_tpu_torch.utils import kernels, sass
+
+    proc, cubin, names = probes
+    out, _ = proc.communicate(timeout=left_s())
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on K1's probes:\n{out}")
+    for fn, ins in sass.parse(sass.cuobjdump(os.path.join(kernels.BUILD_DIR,
+                                                          "fused_trace.so"))).items():
+        print(f"SASS {fn[-40:]} (static, whole kernel): {sass.summary(sass.static_counts(ins))}")
+    funcs = {f: sass.fast_path(ins) for f, ins in sass.parse(sass.cuobjdump(cubin)).items()}
+    base = funcs["probe_base"]
+    per_kind = {k: funcs[name] - base for k, name in names.items()}
+    sensor = funcs["probe_sensor"] - base
+    totals = {}
+    for lens_name, plan in plans.items():
+        totals[lens_name] = []
+        for mode in ("plain", "shipped"):
+            per_ray = collections.Counter(sensor)
+            kinds = k1_surface_kinds(plan, mode)
+            for k in sorted(set(kinds)):
+                per_ray.update({op: n * kinds.count(k) for op, n in per_kind[k].items()})
+                print(f"  K1 SASS {lens_name} {mode}: path {k[0]} ({k[-1]}) x{kinds.count(k)}: "
+                      f"{sass.summary(per_kind[k])}")
+            print(f"K1 SASS per ray {lens_name}, {mode} arithmetic: {sass.summary(per_ray)}")
+            totals[lens_name].append(per_ray["total"])
+    return totals
 
 
 def main():
@@ -286,6 +428,10 @@ def main():
 
     # -- 1. build ----------------------------------------------------------
     t = time.perf_counter()
+    cpu_plans = {lens_name: fused_trace.make_fused_plan(Lens(
+        f"lenses/{lens_name}/lens_web.json", sensor_res=(512, 768), device="cpu"))
+        for lens_name in ("rf50mm", "rf35mm")}
+    probes = start_k1_probes(list(cpu_plans.values()), kernels.BUILD_DIR)
     kernels.build(timeout=left_s())
     print(f"nvcc: {len(kernels.SOURCES)} sources in parallel, "
           f"{kernels.build_seconds:.2f} s")
@@ -294,6 +440,22 @@ def main():
             if any(k in line for k in ("registers", "spill", "smem", "stack",
                                        "Compiling")):
                 print(f"ptxas {src}: {line.strip()}")
+    sass_per_ray = k1_sass_report(cpu_plans, probes)
+    for lens_name, plan in cpu_plans.items():
+        print(f"K1 {lens_name}: {fused_trace.ops_per_ray(plan)} f32 operations per ray "
+              f"(the bound's count) against {sass_per_ray[lens_name][1]} SASS instructions "
+              f"(plain arithmetic everywhere: {sass_per_ray[lens_name][0]}); the first "
+              f"{fused_trace.exact_surfaces(plan)} of {len(plan.surfaces)} surfaces "
+              "traced exact")
+    smem_fn = kernels.library("fused_dp_conv").fused_dp_conv_smem_bytes
+    for c in fused_conv.CHANNELS:
+        for ks in (KS, fused_conv.max_ks(c)):
+            got = smem_fn(c, ks)
+            print(f"K2 shared memory per block, C {c}, ks {ks}: {got} B "
+                  f"(limit {fused_conv.SMEM_LIMIT} B)")
+            if got != fused_conv.smem_bytes(c, ks):
+                raise RuntimeError("csrc/fused_dp_conv.cu and render/fused_conv.py "
+                                   "disagree on the tile's shared memory")
     phase("1 build", t)
 
     # -- 2. K2 vs plain -------------------------------------------------------
@@ -380,7 +542,9 @@ def main():
         depth_ms = cuda_time_ms(lambda: dfdp_net.dfdp_infer(net, stack), 10)
     bound_ms, bound_by = k2_bound_ms(n, h, w, c, KS)
     print(f"K2 fused_dp_conv_tapmajor: {k2_ms:.4f} ms per launch "
-          f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / k2_ms:.1%} of it)")
+          f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / k2_ms:.1%} of it); "
+          f"the first version: {EARLIER_MS['K2 serve']} ms "
+          f"({bound_ms / EARLIER_MS['K2 serve']:.1%})")
     print(f"K2 plain version: {plain_ms:.3f} ms")
     print("library_ms: none -- no single PyTorch call computes a spatially "
           "varying per-pixel convolution")
@@ -457,18 +621,31 @@ def main():
     plan = fused_trace.make_fused_plan(lens)
     sc = lens_scalars(lens)
     pts = torch.from_numpy(bench_points(rng, 64)).cuda()
-    k1_ms, plain1_ms = {}, {}
-    for tag, spp, shrink in (("main", 20000, 1.0), ("chief", 2048, 0.25)):
-        r = sample_from_points(object_points(pts, sc), spp, sc["pupilz"],
-                               sc["pupilr"] * shrink, gen)
-        r = r.replace(o=r.o.contiguous())
+    k1_ms, plain1_ms, bundles = {}, {}, {}
+    for tag, spp, n_pts, shrink in (("main", 20000, 64, 1.0), ("chief", 2048, 64, 0.25),
+                                    ("eval chunk", 65536, 128, 1.0)):
+        chunk_pts = pts if n_pts == 64 else torch.from_numpy(bench_points(rng, n_pts)).cuda()
+        r = bundles[tag] = sample_from_points(object_points(chunk_pts, sc), spp,
+                                              sc["pupilz"], sc["pupilr"] * shrink, gen)
         k1_ms[tag] = cuda_time_ms(
             lambda: fused_trace.fused_trace_sensor(r, lens.d_sensor, plan), 50)
         plain1_ms[tag] = cuda_time_ms(
             lambda: fused_trace.fused_trace_sensor_ref(r, lens.d_sensor, plan), 5, 1)
+    # the wrapper's host time per call, at the chief bundle: launches
+    # enqueued back to back, no synchronisation inside the window
+    r = bundles["chief"]
+    for _ in range(20):
+        fused_trace.fused_trace_sensor(r, lens.d_sensor, plan)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    for _ in range(200):
+        fused_trace.fused_trace_sensor(r, lens.d_sensor, plan)
+    wrapper_us = (time.perf_counter() - t_host) / 200 * 1e6
+    torch.cuda.synchronize()
     ops = fused_trace.ops_per_ray(plan)
     k1_bound, k1_by = k1_bound_ms(20000 * 64, ops)
     chief_bound, chief_by = k1_bound_ms(2048 * 64, ops)
+    chunk_bound, _ = k1_bound_ms(65536 * 128, ops)
     with torch.no_grad():
         psf_ms = cuda_time_ms(lambda: dp_psf_fused(
             pts, gen, sc, plan, spp=20000, spp_chief=2048, ks=KS, chunk=2048), 20)
@@ -480,27 +657,31 @@ def main():
           f"{k1_ms['main']:.4f} ms per launch (bound {k1_bound:.4f} ms by {k1_by}, "
           f"{k1_bound / k1_ms['main']:.1%} of it); chief 2048x64 {k1_ms['chief']:.4f} ms "
           f"(bound {chief_bound:.4f} ms by {chief_by})")
+    print(f"K1 eval chunk 65536x128: {k1_ms['eval chunk']:.4f} ms per launch (bound "
+          f"{chunk_bound:.4f} ms, {chunk_bound / k1_ms['eval chunk']:.1%} of it)")
+    print(f"K1 wrapper, chief bundle: {wrapper_us:.1f} us of host time per call")
     print(f"K1 plain version: main {plain1_ms['main']:.3f} ms, chief "
-          f"{plain1_ms['chief']:.3f} ms")
+          f"{plain1_ms['chief']:.3f} ms, eval chunk {plain1_ms['eval chunk']:.3f} ms")
     print("library_ms: none -- no PyTorch call traces rays through a lens")
     print(f"trace+splat (dp_psf_fused, 64 points x (20000 + 2048) rays, ks {KS}): "
           f"{psf_ms:.3f} ms, {64 * 22048 / psf_ms * 1e3:.4e} rays/s")
     print(f"fit: train step {step_ms:.3f} ms, eval 1024 x 65536 rays "
           f"{eval_ms:.3f} ms (CUDA events)")
     k1_dev = {}
-    for tag, spp, shrink in (("main", 20000, 1.0), ("chief", 2048, 0.25)):
-        r = sample_from_points(object_points(pts, sc), spp, sc["pupilz"],
-                               sc["pupilr"] * shrink, gen)
-        r = r.replace(o=r.o.contiguous())
+    for tag, bound in (("main", k1_bound), ("chief", chief_bound), ("eval chunk", chunk_bound)):
+        r = bundles[tag]
         rows, _ = device_profile(
             lambda: fused_trace.fused_trace_sensor(r, lens.d_sensor, plan), 20)
         k1_rows = [x for x in rows if "fused_trace_kernel" in x[0]]
         if k1_rows:
             k1_dev[tag] = k1_rows[0][2] / k1_rows[0][1]
-            bound = k1_bound if tag == "main" else chief_bound
+            earlier = EARLIER_MS.get(f"K1 {tag}")
             print(f"K1 {tag} bundle, device time per launch (profiler): "
                   f"{k1_dev[tag]:.4f} ms, {bound / k1_dev[tag]:.1%} of its bound "
-                  f"(CUDA events over wrapper calls: {k1_ms[tag]:.4f} ms)")
+                  f"(CUDA events over wrapper calls: {k1_ms[tag]:.4f} ms)"
+                  + (f"; the first version: {earlier} ms ({bound / earlier:.1%})"
+                     if earlier else ""))
+    del bundles
     for what, fn, reps, wall in (("train step", lambda: step_fn(state, gen), 10, step_ms),
                                  ("eval", lambda: eval_fn(lens.net, gen), 1, eval_ms)):
         print_profile(what, *device_profile(fn, reps), reps, wall)

@@ -10,8 +10,9 @@ The card's machine has neither cv2 nor PIL, so PNGs are decoded here with
   * ``load_rgb`` (``as_rgb``): as ``cv2.imread(path)`` + BGR->RGB: alpha
     dropped, grey replicated, 16-bit collapsed to 8-bit by taking the high
     byte.
-  * ``load_gray`` (``as_gray``): as ``cv2.imread(path, 0)``; a colour file
-    must hold grey values (R = G = B), as the bundled depth maps do.
+  * ``load_gray`` (``as_gray``): as ``cv2.imread(path, 0)``: alpha dropped,
+    colour converted by libpng's fixed-point rule, which OpenCV asks for
+    (see ``as_gray``).
   * ``resize_nearest``: the JAX package's default nearest resize (PIL's
     NEAREST), sample for sample.
 
@@ -140,17 +141,20 @@ def as_rgb(samples: np.ndarray) -> np.ndarray:
 
 
 def as_gray(samples: np.ndarray) -> np.ndarray:
-    """read_png samples -> [H, W] uint8, as cv2.imread(path, 0), for grey
-    images and colour images holding grey values."""
-    img = _to8(samples)
-    if img.ndim == 2:
-        return img
-    if img.shape[-1] == 2:
-        return np.ascontiguousarray(img[..., 0])
-    rgb = img[..., :3]
-    if not ((rgb[..., 0] == rgb[..., 1]).all() and (rgb[..., 1] == rgb[..., 2]).all()):
-        raise ValueError("colour PNG read as grey holds non-grey pixels")
-    return np.ascontiguousarray(rgb[..., 0])
+    """read_png samples -> [H, W] uint8, as cv2.imread(path, 0).
+
+    OpenCV has libpng convert colour to grey with the weights 0.299, 0.587
+    (blue the rest) in 15-bit fixed point, 9797 / 19234 / 3737, before the
+    16-to-8-bit strip: truncated for 8-bit samples, rounded (+2^14) for
+    16-bit ones, whose grey then keeps its high byte. Alpha is dropped."""
+    if samples.ndim == 2:
+        return _to8(samples)
+    if samples.shape[-1] == 2:                             # grey + alpha
+        return np.ascontiguousarray(_to8(samples[..., 0]))
+    r, g, b = (samples[..., i].astype(np.int64) for i in range(3))
+    wide = samples.dtype == np.uint16
+    gray = (9797 * r + 19234 * g + 3737 * b + (1 << 14 if wide else 0)) >> 15
+    return (gray >> 8 if wide else gray).astype(np.uint8)
 
 
 def load_rgb(path: str) -> np.ndarray:

@@ -305,24 +305,38 @@ class _Surf(ctypes.Structure):
 
 class _Plan(ctypes.Structure):
     _fields_ = [("n_surf", ctypes.c_int), ("maxiter", ctypes.c_int),
-                ("s", _Surf * MAX_SURF)]
+                ("n_exact", ctypes.c_int), ("s", _Surf * MAX_SURF)]
+
+
+def exact_surfaces(plan: FusedPlan) -> int:
+    """How many leading surfaces the kernel traces with the plain version's
+    roundings: through the aperture stop (the last stop surface), whose
+    edge the pupil sampling aims the bundle's rim at, so that there a
+    rounding decides a ray's validity."""
+    stops = [i for i, surf in enumerate(plan.surfaces) if surf[0] == KIND_STOP]
+    return stops[-1] + 1 if stops else 0
 
 
 @functools.lru_cache(maxsize=64)
-def _plan_struct(plan: FusedPlan, maxiter: int) -> _Plan:
+def _plan_arg(plan: FusedPlan, maxiter: int) -> ctypes.c_void_p:
+    """The kernel's Plan struct for one plan, packed once and kept alive by
+    this cache, as the pointer the C entry point takes."""
     table = _surface_table(plan)
-    st = _Plan(n_surf=len(table), maxiter=maxiter)
+    st = _Plan(n_surf=len(table), maxiter=maxiter, n_exact=exact_surfaces(plan))
     for dst, s in zip(st.s, table):
         for name, value in s.items():
             if name in ("ai", "dai"):
                 getattr(dst, name)[:] = value
             else:
                 setattr(dst, name, value)
-    return st
+    arg = ctypes.c_void_p(ctypes.addressof(st))
+    arg._keep = st
+    return arg
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_int64]
-             + [ctypes.c_void_p] * 5)
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64] * 2
+             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p])
 
 
 @functools.cache
@@ -333,6 +347,17 @@ def _kernel():
     fn = lib.fused_trace_sensor
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
+
+
+def _rows(v: torch.Tensor, cols: int) -> torch.Tensor:
+    """v [..., 3] as a [rows, cols, 3] view with unit stride on the last
+    axis: no copy for the [spp, N, 3] bundles of the fit, broadcast or not."""
+    if v.dim() != 3 or v.shape[1] != cols:
+        v = v.reshape(-1, cols, 3)
+    return v if v.stride(2) == 1 else v.contiguous()
+
+
+_last_plan: list = [None, 0, None]    # (plan, maxiter, _plan_arg) of the last call
 
 
 def fused_trace_sensor(rays: Rays, d_sensor, plan: FusedPlan,
@@ -349,18 +374,31 @@ def fused_trace_sensor(rays: Rays, d_sensor, plan: FusedPlan,
         return fused_trace_sensor_ref(rays, d_sensor, plan, maxiter)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    st = _plan_struct(plan, int(maxiter))
-    fn = _kernel()
-    o, d, ra = rays.o.contiguous(), rays.d.contiguous(), rays.ra.contiguous()
-    outs = [torch.empty(ra.shape, dtype=torch.float32, device=dev) for _ in range(4)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(ctypes.addressof(st), o.data_ptr(), d.data_ptr(), ra.data_ptr(),
-                _f32(d_sensor), ra.numel(), *(t.data_ptr() for t in outs), stream)
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return fused_trace_sensor(rays, d_sensor, plan, maxiter)
+    shape = rays.ra.shape
+    n = rays.ra.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"the fused trace takes fewer than 2^31 rays, got {n}")
+    cols = shape[-1] if shape and shape[-1] > 0 else 1
+    o, d = _rows(rays.o, cols), _rows(rays.d, cols)
+    ra = rays.ra if rays.ra.is_contiguous() else rays.ra.contiguous()
+    out = torch.empty((4, *shape), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out.unbind(0)
+    # a fit calls with one plan: the identity test spares hashing it
+    if _last_plan[0] is not plan or _last_plan[1] != maxiter:
+        _last_plan[:] = [plan, maxiter, _plan_arg(plan, int(maxiter))]
+    # torch.cuda.current_stream(dev).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    rc = _kernel()(_last_plan[2], o.data_ptr(), o.stride(0), o.stride(1),
+                   d.data_ptr(), d.stride(0), d.stride(1), ra.data_ptr(), cols,
+                   _f32(d_sensor), n, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_trace_sensor launch failed: CUDA error {rc}")
     launches += 1
-    return tuple(outs)
+    return out.unbind(0)
 
 
 # ---------------------------------------------------------------------------

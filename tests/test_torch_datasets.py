@@ -88,6 +88,24 @@ def test_png_reader_all_filters(tmp_path, ctype, depth):
     np.testing.assert_array_equal(got, samples)
     np.testing.assert_array_equal(got, _cv2_unchanged_rgb(path, ctype == 4))
     np.testing.assert_array_equal(TD.load_rgb(path), cv2.imread(path)[..., ::-1])
+    np.testing.assert_array_equal(TD.load_gray(path), cv2.imread(path, 0))
+
+
+@pytest.mark.parametrize("channels,dtype", [(3, np.uint8), (4, np.uint8),
+                                            (3, np.uint16), (4, np.uint16)],
+                         ids=["rgb8", "rgba8", "rgb16", "rgba16"])
+def test_gray_read_of_colour_png_equals_cv2(tmp_path, channels, dtype):
+    """Seeded colour PNGs written by cv2 and read as grey: the port's
+    fixed-point rule against cv2.imread(path, 0), exactly."""
+    rng = np.random.default_rng(channels * 10 + np.dtype(dtype).itemsize)
+    bgr = rng.integers(0, np.iinfo(dtype).max + 1, (61, 93, channels)).astype(dtype)
+    bgr[:8, :8, 1:3] = bgr[:8, :8, :1]          # grey pixels too
+    path = str(tmp_path / "c.png")
+    assert cv2.imwrite(path, bgr)
+    want = cv2.imread(path, 0)
+    got = TD.load_gray(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
 
 
 SIZES = [((4000, 6000), (512, 768)), ((512, 768), (512, 768)),

@@ -51,6 +51,61 @@ def test_fused_dp_conv_kernel_matches_plain(n, h, w, c, ks):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,h,w,c,ks", [(2, 21, 45, 1, 1), (2, 13, 30, 3, 3),
+                                        (1, 9, 21, 3, None), (2, 6, 13, 1, None)],
+                         ids=["c1_ks1", "n2_ks3", "c3_max_ks", "c1_max_ks"])
+def test_fused_dp_conv_kernel_tile_edges(n, h, w, c, ks):
+    """The shapes the tiles make special: widths that are not a multiple of
+    the 8 pixels a thread covers (the scalar tail), N = 2, C = 1, the
+    smallest ks and the largest the shared memory takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    ks = fused_conv.max_ks(c) if ks is None else ks
+    img, psf = _conv_inputs(9, n, h, w, c, ks, "cuda")
+    got = fused_conv.fused_dp_conv_tapmajor(img, psf, ks)
+    ref = fused_conv.fused_dp_conv_tapmajor_ref(img, psf, ks)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_fused_dp_conv_kernel_misaligned_psf():
+    """A PSF whose rows start off the 16-byte grid takes the scalar loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, h, w, c, ks = 1, 16, 40, 3, 5
+    img, psf = _conv_inputs(10, n, h, w, c, ks, "cuda")
+    flat = torch.empty(psf.numel() + 1, dtype=psf.dtype, device="cuda")
+    shifted = flat[1:].view(psf.shape)
+    shifted.copy_(psf)
+    got = fused_conv.fused_dp_conv_tapmajor(img, shifted, ks)
+    ref = fused_conv.fused_dp_conv_tapmajor_ref(img, psf, ks)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert float((g - r).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_fused_dp_conv_kernel_smem_matches_host():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sdirt_tpu_torch.utils import kernels
+
+    lib = kernels.library("fused_dp_conv")
+    assert lib.fused_dp_conv_smem_limit() == fused_conv.SMEM_LIMIT
+    for c in fused_conv.CHANNELS:
+        for ks in (1, 21, fused_conv.max_ks(c), fused_conv.max_ks(c) + 2):
+            assert lib.fused_dp_conv_smem_bytes(c, ks) == fused_conv.smem_bytes(c, ks)
+    img, psf = _conv_inputs(11, 1, 4, 8, 3, 1, "cuda")
+    big = fused_conv.max_ks(3) + 2
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_conv.fused_dp_conv_tapmajor(img, torch.zeros((big * big, 1, 2, 32),
+                                                           dtype=torch.bfloat16,
+                                                           device="cuda"), big)
+
+
+@pytest.mark.gpu
 def test_fused_dp_conv_kernel_rejects_bad_input():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -96,14 +151,39 @@ def test_fused_trace_kernel_matches_plain(name, spp, n, shrink):
     torch.cuda.synchronize()
     assert fused_trace.launches == before + 1
     assert all(g.shape == (spp, n) for g in got)
-    # the same f32 operations in the same order (no FMA in the kernel): at
-    # most 1 in 10^5 rays may flip validity; on rays live in both, the JAX
-    # package's fused-vs-specialized gate
+    # the plain version's roundings through the aperture stop, contracted
+    # and approximate arithmetic after it: at most 1 in 10^5 rays may flip
+    # validity; on rays live in both, the JAX package's fused-vs-specialized
+    # gate
     assert int((got[3] != ref[3]).sum()) <= 1e-5 * spp * n
     live = (got[3] > 0) & (ref[3] > 0)
     assert float(live.float().mean()) > 0.5
     for i, tol in ((0, 5e-4), (1, 5e-4), (2, 1e-4)):
         assert float((got[i] - ref[i]).abs()[live].max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["rf50mm", "rf35mm"])
+def test_fused_trace_kernel_reads_views(name):
+    """Broadcast origins (stride 0, as the fit samples them), a copied
+    contiguous bundle and a 1-D bundle give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lens = _lens(name)
+    plan = fused_trace.make_fused_plan(lens)
+    sc = lens_scalars(lens)
+    rays = sample_from_points(object_points(_field_points(5, 7), sc), 301,
+                              sc["pupilz"], sc["pupilr"],
+                              torch.Generator(device="cuda").manual_seed(5))
+    assert rays.o.stride(0) == 0
+    got = fused_trace.fused_trace_sensor(rays, lens.d_sensor, plan)
+    dense = rays.replace(o=rays.o.contiguous())
+    flat = rays.replace(o=dense.o.reshape(-1, 3), d=rays.d.reshape(-1, 3),
+                        ra=rays.ra.reshape(-1))
+    for other in (fused_trace.fused_trace_sensor(dense, lens.d_sensor, plan),
+                  fused_trace.fused_trace_sensor(flat, lens.d_sensor, plan)):
+        for g, o in zip(got, other):
+            assert torch.equal(g, o.reshape(g.shape))
 
 
 @pytest.mark.gpu

@@ -120,6 +120,19 @@ def test_wrapper_on_cpu_takes_plain_version():
         fused_conv.fused_dp_conv_tapmajor(torch.from_numpy(img), psf_bf[:, :, :1], 3)
 
 
+def test_kernel_tile_shared_memory():
+    """K2's tile in shared memory: (8 + ks - 1) rows x (128 + 8 ceil(ks/8))
+    columns x C of bf16, and the largest ks that fits 227 KB."""
+    assert fused_conv.smem_bytes(3, 21) == 3 * 28 * 152 * 2 == 25536
+    assert fused_conv.smem_bytes(1, 1) == 8 * 136 * 2
+    for c in fused_conv.CHANNELS:
+        ks = fused_conv.max_ks(c)
+        assert ks % 2 == 1
+        assert fused_conv.smem_bytes(c, ks) <= fused_conv.SMEM_LIMIT
+        assert fused_conv.smem_bytes(c, ks + 2) > fused_conv.SMEM_LIMIT
+    assert (fused_conv.max_ks(3), fused_conv.max_ks(1)) == (135, 277)
+
+
 @pytest.mark.parametrize("mirror_right", [False, True])
 def test_local_dp_conv_matches_jax(mirror_right):
     rng = np.random.default_rng(6)

@@ -4,6 +4,7 @@ against the JAX package on the CPU: its specialized trace + propagate_to
 (the reference of tests/test_fused_trace.py) and the Pallas kernel itself
 in interpret mode."""
 
+import ctypes
 import os
 
 import jax
@@ -127,3 +128,33 @@ def test_wrapper_rejects_bad_rays(lenses):
     with pytest.raises(ValueError, match="no kernel"):
         meta = Rays(o=o.to("meta"), d=d.to("meta"), ra=ra.to("meta"))
         fused_trace.fused_trace_sensor(meta, 60.0, plan)
+
+
+def test_kernel_plan_packing(lenses):
+    """The Plan struct handed to csrc/fused_trace.cu: the surface table as
+    packed, and the exact surfaces running through the aperture stop."""
+    lens, _ = lenses
+    plan = fused_trace.make_fused_plan(lens)
+    table = fused_trace._surface_table(plan)
+    arg = fused_trace._plan_arg(plan, 3)
+    st = arg._keep
+    assert arg.value == ctypes.addressof(st)
+    assert ctypes.sizeof(st) == ctypes.sizeof(fused_trace._Plan)
+    assert (st.n_surf, st.maxiter) == (len(table), 3)
+    assert st.n_exact == fused_trace.exact_surfaces(plan) == lens.aper_idx + 1
+    assert table[st.n_exact - 1]["path"] == fused_trace.PATH_PLANE
+    for packed, s in zip(st.s, table):
+        for name, value in s.items():
+            got = getattr(packed, name)
+            assert (list(got) if name in ("ai", "dai") else got) == \
+                (list(value) if name in ("ai", "dai") else value), name
+    assert fused_trace._plan_arg(plan, 3) is arg           # packed once
+
+
+def test_exact_surfaces_without_a_stop(lenses):
+    lens, _ = lenses
+    plan = fused_trace.make_fused_plan(lens)
+    no_stop = plan.__class__(surfaces=tuple(s for s in plan.surfaces
+                                                   if s[0] != fused_trace.KIND_STOP),
+                             eta=plan.eta[:-1])
+    assert fused_trace.exact_surfaces(no_stop) == 0
