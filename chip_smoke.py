@@ -12,7 +12,8 @@ Phases, each printing its elapsed seconds:
      probe kernels; their -Xptxas -v reports, K1's SASS instruction count
      per ray (rf50mm, rf35mm) and K2's shared memory per launch printed;
   2. K2 vs plain: K2 against its plain PyTorch version on seeded inputs at
-     the serve shape (1x512x768x3, ks 21), a ragged shape and a batch of 2;
+     the serve shape (1x512x768x3, ks 21), the training render's shape
+     (4x512x768x3), a ragged shape and a batch of 2;
   3. serve path: ``python -m sdirt_tpu_torch.dfdp_net --stage sample`` on
      real_sample_set/ with the exported weights, through its main(); K2's
      launch count is read around it, and the scores are held against the
@@ -35,7 +36,21 @@ Phases, each printing its elapsed seconds:
      bundles and at an eval chunk's main bundle (65536 x 128), the wrapper's
      host time per call, trace+splat rays/s at bench.py's shape, a train
      step, an eval;
-  9. the kernels line, then the card's name and power limit, then the
+  9. training path: ``python -m sdirt_tpu_torch.dfdp_net --stage train``
+     through its main(), on configs/dfdp_synthetic_train_512_v5.yml at its
+     width (512x768, bs 4, style v5, lr 3e-5, warm start from the exported
+     Sdirt_best_acc1), cut in length only (printed); K2's launch count is
+     read around it and must be one per step and one per validation item
+     at epochs 0 and 1; the losses must be finite; the exported best net is
+     loaded into the --stage sample depth part; a rerun resumes and trains
+     no step. Per step: the render and the train step (CUDA events), the
+     host's data wait, pairs per second, peak device memory; a profiled
+     loop of training steps gives the device's idle share; K2 and its plain
+     version are timed on a training batch's PSF;
+ 10. train-step reference: three 128x192 bs 2 steps of the shipped net on
+     the JAX package's stored renders and on the card's own render, held
+     against sdirt_tpu_torch/reference/train_step_jax_cpu.json;
+ 11. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -83,6 +98,9 @@ F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
 # operation IEEE and separately rounded; one thread per pixel): device ms on
 # an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6
 EARLIER_MS = {"K1 main": 0.1576, "K1 chief": 0.0201, "K2 serve": 0.4715}
+TRAIN_CONFIG = "configs/dfdp_synthetic_train_512_v5.yml"
+# the training phase keeps the config's widths and cuts its length only
+TRAIN_CUTS = {"epochs": 1, "synthetic_len": 16, "synthetic_val_len": 2}
 
 T0 = time.perf_counter()
 
@@ -392,6 +410,211 @@ def k1_sass_report(plans, probes):
     return totals
 
 
+def mean_after_first(values):
+    """Mean of the steps after the first (which pays for cuDNN's algorithm
+    search and the loader's start), or of the one step there is."""
+    return float(np.mean(values[1:] if len(values) > 1 else values))
+
+
+def cut_config(path, out_dir, **overrides):
+    """The config at ``path`` with ``overrides``, written under out_dir."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(overrides)
+    cut = os.path.join(out_dir, os.path.basename(path))
+    with open(cut, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return cut, cfg
+
+
+def training_phase(dfdp_net, fused_conv, smi):
+    """Phase 9: the training path through dfdp_net.main(); returns its
+    figures for the kernels line."""
+    from sdirt_tpu_torch.dfdp.datasets import DataLoader
+    from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
+    from sdirt_tpu_torch.render.camera import degamma
+    from sdirt_tpu_torch.render.mlp_fast import mlp_psf_tapmajor
+    from sdirt_tpu_torch.render.pipeline import query_points
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, cfg = cut_config(TRAIN_CONFIG, tmp, **TRAIN_CUTS,
+                                   ckpt_out=os.path.join(tmp, "best"),
+                                   train_state_dir=os.path.join(tmp, "state"))
+        bs, res = cfg["bs"], tuple(cfg["res"])
+        full = dfdp_net.load_config(TRAIN_CONFIG)
+        print(f"training: {TRAIN_CONFIG} at {res[0]}x{res[1]}, bs {bs}, style "
+              f"{cfg['synthetic_style']}, lr {cfg['lr']}, ks {cfg['ks']}, warm start "
+              f"{cfg['train']['dfdpnet_pretrained']}; cut in length only: {TRAIN_CUTS} "
+              f"(the config's: { {k: full[k] for k in TRAIN_CUTS} })")
+        argv = ["--stage", "train", "--config", cfg_path, "--device", "cuda",
+                "--out", os.path.join(tmp, "results")]
+        fused_conv.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t_main = time.perf_counter()
+        res1 = dfdp_net.main(argv)
+        main_s = time.perf_counter() - t_main
+        k2 = fused_conv.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        losses = np.array(res1["losses"])
+        n_steps = TRAIN_CUTS["synthetic_len"] // bs
+        want = n_steps + 2 * TRAIN_CUTS["synthetic_val_len"]
+        print(f"K2 launches on the training path: {k2} (steps {len(losses)} + 2 "
+              f"validations x {TRAIN_CUTS['synthetic_val_len']} items = {want})")
+        if len(losses) != n_steps or k2 != want:
+            raise RuntimeError("the training path did not launch K2 once per step "
+                               "and validation item")
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite training loss: {losses}")
+        steps = res1["steps"]
+        render_ms = [s["render_ms"] for s in steps]
+        step_ms = [s["train_step_ms"] for s in steps]
+        wait_s = [s["data_wait_s"] for s in steps]
+        pairs_s = bs * n_steps / res1["epoch_seconds"][0]
+        print(f"train losses {losses.round(6).tolist()}; validation acc1 "
+              f"{[round(v['acc1'], 4) for v in res1['val']]}; main() {main_s:.1f} s")
+        for i, s in enumerate(steps):
+            print(f"  step {i}: data wait {s['data_wait_s'] * 1e3:.1f} ms, render "
+                  f"{s['render_ms']:.3f} ms, train step {s['train_step_ms']:.3f} ms")
+        print(f"per training step (mean after the first, CUDA events): render "
+              f"{mean_after_first(render_ms):.3f} ms, DDDNet train step "
+              f"{mean_after_first(step_ms):.3f} ms, host data wait "
+              f"{mean_after_first(wait_s) * 1e3:.1f} ms; epoch loop "
+              f"{res1['epoch_seconds'][0]:.3f} s for {n_steps} steps: {pairs_s:.3f} "
+              f"pairs/s; max_memory_allocated {peak_gb:.2f} GiB ({smi})")
+
+        export = dfdp_net.ported_weights(cfg["ckpt_out"])
+        net = dfdp_net.build_basenet(export, device="cuda")
+        depth = {}
+        for tag, ds in zip(("box", "f2d", "casual"),
+                           dfdp_net.get_depth_sample_set(dfdp_net.load_config(TRAIN_CONFIG))):
+            depth[tag] = dfdp_net.test_depth(net, ds, torch.device("cuda"))
+            if not all(np.isfinite(v) for v in depth[tag].values()):
+                raise RuntimeError(f"the exported net's {tag} depth is not finite")
+        print("exported best net in the --stage sample depth part: "
+              + "; ".join(f"{k} mae {v['mae']:.4f} acc1 {v['acc1']:.4f}"
+                          for k, v in depth.items()))
+        del net
+
+        res2 = dfdp_net.main(argv)
+        print(f"resume rerun: start epoch {res2['start_epoch']}, epochs trained "
+              f"{res2['epochs_trained']}, steps {len(res2['losses'])}")
+        if res2["start_epoch"] != TRAIN_CUTS["epochs"] or res2["losses"]:
+            raise RuntimeError("the resumed run trained a step")
+
+    # a profiled loop of training steps as train() runs them, data included,
+    # after one warm-up step of the same loader
+    args = dfdp_net.load_config(TRAIN_CONFIG)
+    args.update(TRAIN_CUTS, synthetic_len=bs * (n_steps + 1))
+    train_lens, _ = dfdp_net.get_lens(args, device="cuda")
+    train_set = dfdp_net.get_dataset(args)[0]
+    state = create_dfdp_state(dfdp_net.build_basenet(dfdp_net.ported_weights(
+        args["train"]["dfdpnet_pretrained"]), device="cuda", train=True),
+        args["lr"], n_steps)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = iter(DataLoader(train_set, batch_size=bs, shuffle=True,
+                              num_workers=4, drop_last=True, seed=0))
+
+    def loop(n):
+        for _ in range(n):
+            stack, depth_dev, _ = dfdp_net._render_batch(train_lens, *next(batches),
+                                                         gen, train=True)
+            dfdp_train_step(state, stack, depth_dev)
+        torch.cuda.synchronize()
+
+    loop(1)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_loop = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loop(n_steps)
+    loop_ms = (time.perf_counter() - t_loop) * 1e3
+    rows = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[2])
+    busy = sum(r[2] for r in rows)
+    idle = 1 - busy / loop_ms if rows else None
+    print_profile(f"training loop ({n_steps} steps after a warm-up step, data "
+                  "included)", rows, busy, n_steps, loop_ms / n_steps, top=10)
+
+    # K2 and its plain version on a training batch's PSF
+    aif, gt = next(iter(DataLoader(train_set, batch_size=bs, num_workers=4)))
+    with torch.no_grad():
+        depth_mm = -torch.from_numpy(gt).cuda() * 1e3
+        o = query_points(depth_mm, train_lens.d_sensor, train_lens.d_min, train_lens.d_max)
+        psf_tm = mlp_psf_tapmajor(train_lens.net, o, KS)
+        lum = degamma(torch.from_numpy(aif).cuda().permute(0, 2, 3, 1)).contiguous()
+        got = fused_conv.fused_dp_conv_tapmajor(lum, psf_tm, KS)
+        ref = fused_conv.fused_dp_conv_tapmajor_ref(lum, psf_tm, KS)
+        k2_err = max_diff(got, ref)
+        del got, ref
+        if not k2_err <= KERNEL_TOL:
+            raise RuntimeError("K2 disagrees with its plain version on a training batch")
+        k2_ms = cuda_time_ms(lambda: fused_conv.fused_dp_conv_tapmajor(lum, psf_tm, KS), 20)
+        plain_ms = cuda_time_ms(
+            lambda: fused_conv.fused_dp_conv_tapmajor_ref(lum, psf_tm, KS), 2, 1)
+    k2_shape = list(lum.shape)
+    bound_ms, bound_by = k2_bound_ms(*k2_shape, KS)
+    print(f"K2 at the training shape {tuple(k2_shape)}: {k2_ms:.4f} ms per launch "
+          f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / k2_ms:.1%} of it); plain "
+          f"{plain_ms:.3f} ms; K2 vs plain on the batch's PSF {k2_err:.3e}")
+    del psf_tm, lum, o, state
+    torch.cuda.empty_cache()
+    return {"k2_launches": k2, "steps": n_steps, "losses": losses.tolist(),
+            "render_ms": mean_after_first(render_ms),
+            "train_step_ms": mean_after_first(step_ms),
+            "data_wait_ms": mean_after_first(wait_s) * 1e3,
+            "pairs_per_s": pairs_s, "max_memory_allocated_gib": peak_gb,
+            "loop_ms_per_step": loop_ms / n_steps, "device_idle_share": idle,
+            "k2": {"shape": k2_shape, "ms": k2_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "max_abs_err": k2_err}}
+
+
+def train_step_reference(dfdp_net):
+    """Phase 10: three train steps of the shipped net at 128x192, bs 2, on
+    the stored JAX stacks and on the card's own render, against the JAX
+    package's CPU losses. Returns the losses and their worst relative gaps."""
+    from sdirt_tpu_torch.dfdp.datasets import SyntheticRGBD
+    from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
+
+    ref_dir = os.path.join(ROOT, "sdirt_tpu_torch", "reference")
+    with open(os.path.join(ref_dir, "train_step_jax_cpu.json")) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(ROOT, ref["stacks"])) as z:
+        stored = [(z["stacks"][k].astype(np.float32) / 65535,
+                   z["depths"][k].astype(np.float32)) for k in range(ref["steps"])]
+    args = dfdp_net.load_config(ref["config"])
+    lens, _ = dfdp_net.get_lens(args, device="cuda")
+    ds = SyntheticRGBD(tuple(ref["res"]), style="v5", seed=0)
+    bs = ref["bs"]
+    out = {"reference": ref["losses"]}
+    for mode, rtol in (("stored_stacks", ref["stored_stacks_rtol"]),
+                       ("own_render", ref["own_render_rtol"])):
+        state = create_dfdp_state(dfdp_net.build_basenet(
+            os.path.join(ROOT, ref["weights"]), device="cuda", train=True),
+            ref["lr"], ref["total_steps"])
+        losses = []
+        for k in range(ref["steps"]):
+            if mode == "stored_stacks":
+                stack, depth = (torch.from_numpy(a).cuda() for a in stored[k])
+            else:
+                items = [ds[bs * k + j] for j in range(bs)]
+                stack, depth, _ = dfdp_net._render_batch(
+                    lens, np.stack([i[0] for i in items]), np.stack([i[1] for i in items]))
+            losses.append(float(dfdp_train_step(state, stack, depth)["total"]))
+        gaps = [abs(a - b) / b for a, b in zip(losses, ref["losses"])]
+        print(f"train steps on {mode.replace('_', ' ')}: losses {losses} (JAX CPU "
+              f"{ref['losses']}), worst relative gap {max(gaps):.3e} (tolerance {rtol})")
+        if not (np.isfinite(losses).all() and max(gaps) <= rtol):
+            raise RuntimeError(f"train steps on {mode} off the JAX reference")
+        out[mode] = {"losses": losses, "worst_rel_gap": max(gaps)}
+    return out
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -462,7 +685,7 @@ def main():
     t = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     diffs = {}
-    for shape in ((1, 512, 768, 3), (1, 500, 750, 3), (2, 64, 96, 3)):
+    for shape in ((1, 512, 768, 3), (4, 512, 768, 3), (1, 500, 750, 3), (2, 64, 96, 3)):
         img, psf = conv_inputs(gen, *shape, KS)
         got = fused_conv.fused_dp_conv_tapmajor(img, psf, KS)
         ref = fused_conv.fused_dp_conv_tapmajor_ref(img, psf, KS)
@@ -687,10 +910,20 @@ def main():
         print_profile(what, *device_profile(fn, reps), reps, wall)
     phase("8 K1 times", t)
 
-    # -- 9. result -----------------------------------------------------------
+    # -- 9. training path ----------------------------------------------------
+    t = time.perf_counter()
+    train_stats = training_phase(dfdp_net, fused_conv, smi)
+    phase("9 training path", t)
+
+    # -- 10. train-step reference ---------------------------------------------
+    t = time.perf_counter()
+    train_ref = train_step_reference(dfdp_net)
+    phase("10 train-step reference", t)
+
+    # -- 11. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
-    err = max([main_diff, *diffs.values()])
+    err = max([main_diff, train_stats["k2"]["max_abs_err"], *diffs.values()])
     k1_err = max(v[0] for v in k1_check.values())
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
@@ -705,9 +938,14 @@ def main():
         "name": "fused_dp_conv_tapmajor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_dp_conv.cu",
         "replaces": "sdirt_tpu/render/fused_conv_pallas.py:81",
-        "launches": launches, "max_abs_err": err, "max_abs_diff": err,
+        "launches": launches + train_stats["k2_launches"],
+        "launches_by_path": {"serve": launches, "train": train_stats["k2_launches"]},
+        "max_abs_err": err, "max_abs_diff": err,
         "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None,
+        "train_shape": train_stats["k2"]}],
+        "train": {k: v for k, v in train_stats.items() if k not in ("k2",)},
+        "train_step_reference": train_ref}))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

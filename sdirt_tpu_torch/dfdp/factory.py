@@ -1,10 +1,12 @@
-"""Config-driven construction of the serve path's lens and sample sets
-(PyTorch counterpart of sdirt_tpu/dfdp/factory.py).
+"""Config-driven construction of the lens, the training mix and the real
+test sets (PyTorch counterpart of sdirt_tpu/dfdp/factory.py).
 
 The configs name orbax checkpoints (``./ckpt/<lens>/<name>``); the port reads
 their exported copies, ``sdirt_tpu_torch/weights/<lens>/<name>.npz``
-(scripts/export_torch_weights.py). Thin lenses, focal stacks, re-stopped
-apertures and the training/full-test sets come with later slices.
+(scripts/export_torch_weights.py), or its own export ``<name>.npz`` where
+one lies beside the name. Thin lenses, focal stacks and re-stopped
+apertures are not ported yet, nor the NYU, FlyingThings3D and Middlebury
+loaders (ROADMAP.md §1 item 9): the training mix is ``Synthetic`` only.
 """
 
 from __future__ import annotations
@@ -12,14 +14,22 @@ from __future__ import annotations
 import os
 
 from .datasets import (CanonCasualSet, CanonDepthSet, CanonFlat2DepthSet,
-                       CanonFlatSet)
+                       CanonFlatSet, ConcatDataset, SyntheticRGBD)
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")
 
 
 def ported_weights(ckpt_path: str) -> str:
-    """``[./]ckpt/<lens>/<name>`` -> the exported ``.npz`` in the port."""
+    """A config's checkpoint name -> the ``.npz`` the port loads: the name
+    itself when it is an ``.npz``, ``<name>.npz`` when the port exported one
+    there, else the exported copy ``weights/<lens>/<name>.npz``."""
+    if ckpt_path.endswith(".npz"):
+        if not os.path.exists(ckpt_path):
+            raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
+        return ckpt_path
+    if os.path.exists(ckpt_path + ".npz"):
+        return ckpt_path + ".npz"
     lens, name = os.path.normpath(ckpt_path).split(os.sep)[-2:]
     path = os.path.join(WEIGHTS_DIR, lens, f"{name}.npz")
     if not os.path.exists(path):
@@ -58,3 +68,34 @@ def get_depth_sample_set(args):
 
 def get_flat_sample_set(args):
     return CanonFlatSet(args["real_flat_sample"], resize=args["res"])
+
+
+NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 9: it "
+                   "waits for such data in the repository); use 'Synthetic'")
+
+
+def get_dataset(args):
+    """(first-half training set, second-half training set, validation set).
+    The ``Synthetic`` mix trains on one set throughout."""
+    res = args["res"]
+    name, tname = args["train"]["dataset"], args["test"]["dataset"]
+    for n in (name, tname):
+        if n != "Synthetic":
+            raise NotImplementedError(NOT_PORTED_DATA.format(n))
+    style = args.get("synthetic_style", "v1")
+    train_set = SyntheticRGBD(resize=res, length=args.get("synthetic_len", 64),
+                              style=style)
+    val_set = SyntheticRGBD(resize=res, length=args.get("synthetic_val_len", 4),
+                            seed=999, train=False, style=style)
+    return ConcatDataset(train_set), ConcatDataset(train_set), val_set
+
+
+def get_depth_test_set(args):
+    res = args["res"]
+    return (CanonDepthSet(args["real_box_test"], resize=res),
+            CanonFlat2DepthSet(args["real_flat_test"], resize=res),
+            CanonCasualSet(args["real_casual_test"], resize=res))
+
+
+def get_flat_test_set(args):
+    return CanonFlatSet(args["real_flat_test"], resize=args["res"])

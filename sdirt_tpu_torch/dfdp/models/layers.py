@@ -3,8 +3,9 @@ sdirt_tpu/dfdp/models/layers.py).
 
 Layouts are PyTorch's: NCHW, and NCDHW for the 3-D cost-volume blocks.
 Sub-modules carry the Flax module names (``Conv_0``, ``BatchNorm_0``, ...)
-so the carried-across weights map by name (utils/weights.py). BatchNorm runs
-on its running statistics with eps 1e-5.
+so the carried-across weights map by name (utils/weights.py). BatchNorm
+(``BatchNorm``, eps 1e-5) runs on its running statistics in eval mode and
+on the batch's in train mode, with Flax's running-average rule.
 """
 
 from __future__ import annotations
@@ -14,6 +15,46 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm(nn.Module):
+    """Batch normalisation with Flax's semantics (nn.BatchNorm with
+    momentum 0.9, epsilon 1e-5), over every axis but the channel axis 1.
+
+    Train mode normalises with the batch mean and the biased batch variance
+    and updates the running statistics once per forward as Flax does:
+    ``ra = 0.9 ra + 0.1 stat``, with the variance taken as
+    E[x^2] - E[x]^2 (Flax's fast variance), not the unbiased variance that
+    torch.nn.BatchNorm*d keeps. Eval mode reads the running statistics.
+    Parameters and buffers carry torch's names (weight, bias, running_mean,
+    running_var), which utils/weights.py maps to Flax's scale, bias, mean,
+    var.
+    """
+
+    EPS, MOMENTUM = 1e-5, 0.9
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.EPS)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.EPS)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            xs = x.detach().to(torch.promote_types(x.dtype, torch.float32))
+            mean = xs.mean(dims)
+            var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+            m = self.MOMENTUM
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        return out
 
 
 def resize_linear_align_corners(x, out_sizes: Sequence[int],
@@ -63,8 +104,7 @@ class BasicConv(nn.Module):
             self.Conv_0 = cls(cin, features, kernel_size, stride,
                               padding=padding, dilation=dilation, bias=False)
         if bn:
-            self.BatchNorm_0 = (nn.BatchNorm3d if is_3d
-                                else nn.BatchNorm2d)(features, eps=1e-5)
+            self.BatchNorm_0 = BatchNorm(features)
         self.deconv, self.bn, self.relu = deconv, bn, relu
 
     def forward(self, x):
@@ -82,7 +122,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, features, kernel_size, stride,
                                 padding=padding, dilation=dilation, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features, eps=1e-5)
+        self.BatchNorm_0 = BatchNorm(features)
 
     def forward(self, x):
         return self.BatchNorm_0(self.Conv_0(x))

@@ -1,12 +1,87 @@
-"""DfDP inference step (PyTorch counterpart of sdirt_tpu/dfdp/train.py:
-dfdp_infer). The train step comes with the training slice."""
+"""DfDP train and inference steps (PyTorch counterpart of
+sdirt_tpu/dfdp/train.py, ``dfdp`` mode).
+
+The optimiser reproduces the JAX package's optax chain
+``clip_by_global_norm(1.0)`` -> ``adamw(cosine(lr, T_max=total_steps))``:
+the global norm clip is done by hand (optax divides by the norm when it is
+not below the limit; torch's clip_grad_norm_ adds 1e-6 and clamps), AdamW
+takes optax's constants (weight decay 1e-4 on every parameter), and the
+learning rate of update t is cosine(t) from t = 0.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from ..psfnet.train import ADAMW, cosine_annealing
+from .basenet import compute_loss, linear_depth
+
+MAX_GRAD_NORM = 1.0
+
+
+@dataclasses.dataclass
+class DfDPTrainState:
+    net: torch.nn.Module
+    opt: torch.optim.Optimizer
+    sched: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def create_dfdp_state(net: torch.nn.Module, lr: float,
+                      total_steps: int) -> DfDPTrainState:
+    """AdamW + cosine(T_max = total_steps) on ``net``, put in train mode.
+    The scheduler steps after each update, so update t uses cosine(t)."""
+    opt = torch.optim.AdamW(net.parameters(), lr=lr, **ADAMW)
+    sched_fn = cosine_annealing(lr, max(total_steps, 1))
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda t: sched_fn(t) / lr)
+    return DfDPTrainState(net=net.train(), opt=opt, sched=sched)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads, max_norm: float = MAX_GRAD_NORM):
+    """optax.clip_by_global_norm in place: g -> g / norm * max_norm when the
+    global norm is not below max_norm. Returns the norm (not synchronised)."""
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in grads]))
+    denom = torch.where(norm < max_norm, torch.ones_like(norm), norm / max_norm)
+    torch._foreach_div_(grads, denom)
+    return norm
+
+
+def dfdp_grads(net, stack_rgb, gt_depth):
+    """Forward in train mode (one BN statistics update) and backward of the
+    masked SmoothL1 log-depth loss. Returns the loss dict (detached); the
+    gradients are left in the parameters' ``.grad``."""
+    gt_log, mask = linear_depth(gt_depth)
+    for p in net.parameters():
+        p.grad = None
+    losses = compute_loss(net(stack_rgb), gt_log, mask)
+    losses["total"].backward()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth) -> dict:
+    """One optimisation step on a rendered DP batch.
+
+    stack_rgb: [B, 6, H, W]; gt_depth: [B, 1, H, W] metres. Returns the
+    loss dict of 0-d tensors (not synchronised)."""
+    losses = dfdp_grads(state.net, stack_rgb, gt_depth)
+    clip_by_global_norm_([p.grad for p in state.net.parameters()])
+    state.opt.step()
+    state.sched.step()
+    state.step += 1
+    return losses
 
 
 @torch.no_grad()
 def dfdp_infer(net, stack_rgb):
-    """Depth in metres: exp of the net's log depth. stack_rgb: [B, 6, H, W]."""
-    return torch.exp(net(stack_rgb)["pred_depth_est"].float())
+    """Depth in metres: exp of the net's log depth (BatchNorm on its running
+    statistics, whatever mode the net is in). stack_rgb: [B, 6, H, W]."""
+    was_training = net.training
+    net.eval()
+    try:
+        return torch.exp(net(stack_rgb)["pred_depth_est"].float())
+    finally:
+        net.train(was_training)

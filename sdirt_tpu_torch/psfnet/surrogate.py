@@ -118,11 +118,13 @@ class PSFNetLens(Lens):
         np.savez(path, **torch_to_flax(self.net.state_dict()))
 
     @torch.no_grad()
-    def render(self, img, depth, foc_dist, variant: str = "fused"):
+    def render(self, img, depth, foc_dist, variant: str = "fused",
+               train: bool = False, generator=None):
         """Render a DP pair from an all-in-focus image + depth map.
 
         img: [N, C, H, W] in [0, 1]; depth: [N, 1, H, W] mm (negative);
         foc_dist: [N] mm (negative, unused by the per-pixel render).
+        train=True adds the DP noise, drawn from ``generator``.
         Returns [N, 2C, H, W] on this lens's device.
         """
         from ..render.pipeline import render_dp
@@ -132,7 +134,7 @@ class PSFNetLens(Lens):
         return render_dp(self.net, img, depth, foc_dist,
                          d_sensor=self.d_sensor, d_min=self.d_min,
                          d_max=self.d_max, ks=self.kernel_size,
-                         variant=variant)
+                         variant=variant, train=train, generator=generator)
 
     # -----------------------------------------------------------------
     # Fit-quality evaluation

@@ -14,15 +14,14 @@ here they are the same tensors).
 from __future__ import annotations
 
 import dataclasses
-import glob
 import math
-import os
 
 import numpy as np
 import torch
 
 from ..dp.fused_trace import make_fused_plan
 from ..dp.psf import dp_psf_fused, lens_scalars
+from ..utils.checkpoint import TrainCheckpointer
 
 # optax.adamw's defaults, set explicitly (torch's weight decay is 1e-2)
 ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
@@ -158,44 +157,6 @@ def make_eval_fn(lens, *, bs: int = 1024, spp: int = 65536, ks: int = 21):
         return eval_loss(net(inp).reshape(bs, ks, ks), psf_gt)
 
     return eval_fn
-
-
-class TrainCheckpointer:
-    """The full train state (net, optimiser, scheduler, step) under a
-    directory, one ``torch.save`` file per step, the newest ``max_to_keep``
-    kept."""
-
-    def __init__(self, directory: str, max_to_keep: int = 3):
-        self.directory = os.path.abspath(directory)
-        self.max_to_keep = max_to_keep
-        os.makedirs(self.directory, exist_ok=True)
-
-    def _steps(self):
-        names = glob.glob(os.path.join(self.directory, "step_*.pt"))
-        return sorted(int(os.path.basename(n)[5:-3]) for n in names)
-
-    def save(self, step: int, state: PSFNetTrainState) -> None:
-        path = os.path.join(self.directory, f"step_{step}.pt")
-        torch.save({"net": state.net.state_dict(), "opt": state.opt.state_dict(),
-                    "sched": state.sched.state_dict(), "step": state.step},
-                   path + ".tmp")
-        os.replace(path + ".tmp", path)
-        for old in self._steps()[:-self.max_to_keep]:
-            os.remove(os.path.join(self.directory, f"step_{old}.pt"))
-
-    def restore_latest(self, state: PSFNetTrainState):
-        """Restore the newest checkpoint into ``state``; returns its step, or
-        None when the directory holds none."""
-        steps = self._steps()
-        if not steps:
-            return None
-        ckpt = torch.load(os.path.join(self.directory, f"step_{steps[-1]}.pt"),
-                          map_location=next(state.net.parameters()).device)
-        state.net.load_state_dict(ckpt["net"])
-        state.opt.load_state_dict(ckpt["opt"])
-        state.sched.load_state_dict(ckpt["sched"])
-        state.step = ckpt["step"]
-        return steps[-1]
 
 
 def fit_psfnet(lens, iters: int = 10000, bs: int = 128, lr: float = 1e-4,

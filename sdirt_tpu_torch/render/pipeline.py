@@ -10,8 +10,10 @@ convolution -> gamma, clip. Two variants:
   "scan"  -- the plain path: bf16 network per view (psfnet.surrogate.pred_psf)
              then the tap-by-tap convolution (perpixel.local_dp_conv).
 
-The int8 trunk ("fused_int8"), the basis student ("basis") and the training
-noise (dp_noise) come with later slices.
+Training renders (``train=True``) add the structured DP noise
+(camera.dp_noise) after gamma and before the clip. The JAX package's default
+variant is the int8 trunk ("fused_int8"), which the port does not have yet,
+nor the basis student ("basis"): the port's training render is "fused".
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import copy
 
 import torch
 
-from .camera import degamma, gamma
+from .camera import degamma, dp_noise, gamma
 
 VARIANTS = ("fused", "scan")
 
@@ -45,15 +47,20 @@ def _bf16_fn(net):
 
 @torch.no_grad()
 def render_dp(net, img, depth, foc_dist, *, d_sensor, d_min, d_max, ks,
-              variant: str = "fused"):
+              variant: str = "fused", train: bool = False,
+              generator: torch.Generator | None = None):
     """Render a DP pair.
 
     net: the PSFMLP surrogate; img: [N, C, H, W] in [0, 1]; depth:
     [N, 1, H, W] or [N, H, W] mm (negative); foc_dist is unused (the
-    per-pixel render reads the depth only). Returns [N, 2C, H, W] in [0, 1].
+    per-pixel render reads the depth only). train=True adds the DP noise,
+    drawn from ``generator`` (required then, on the image's device).
+    Returns [N, 2C, H, W] in [0, 1].
     """
     if variant not in VARIANTS:
         raise ValueError(f"render variant {variant!r} not in {VARIANTS}")
+    if train and generator is None:
+        raise ValueError("a training render needs a generator for its noise")
     del foc_dist
     if depth.dim() == 3:
         depth = depth[:, None]
@@ -73,4 +80,6 @@ def render_dp(net, img, depth, foc_dist, *, d_sensor, d_min, d_max, ks,
         render_l, render_r = local_dp_conv(lum, psf, ks)
     render = torch.cat([render_l, render_r], dim=-1)         # [N, H, W, 2C]
     render = gamma(render).permute(0, 3, 1, 2)               # [N, 2C, H, W]
+    if train:
+        render = dp_noise(generator, render)
     return torch.clamp(render, 0.0, 1.0)

@@ -112,8 +112,23 @@ def test_no_forbidden_imports(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+# the modules of the training slice, which the import guard above must see
+TRAIN_SLICE = ("dfdp/cvops.py", "dfdp/datasets.py", "dfdp/train.py",
+               "dfdp/basenet.py", "dfdp/models/layers.py", "dfdp/monitor.py",
+               "dfdp/factory.py", "render/camera.py", "render/pipeline.py",
+               "utils/checkpoint.py", "utils/stall.py", "utils/logging.py",
+               "dfdp_net.py")
+
+
+def test_import_guard_covers_the_training_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(TRAIN_SLICE) <= files
+
+
 ENTRY_POINTS = [PSFNetLens.__init__, Lens.__init__, basenet.build_basenet,
-                factory.get_lens, dfdp_net.run_sample, resolve_device]
+                factory.get_lens, dfdp_net.run_sample, dfdp_net.run_eval,
+                dfdp_net.train, resolve_device]
 
 
 @pytest.mark.parametrize("fn", ENTRY_POINTS, ids=lambda f: f.__qualname__)
@@ -135,6 +150,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: factory.get_lens(args),
              lambda: dfdp_net.run_sample(args),
              lambda: dfdp_net.main(["--stage", "sample", "--config", CONFIG]),
+             lambda: dfdp_net.main(["--stage", "train", "--config", CONFIG]),
+             lambda: dfdp_net.main(["--stage", "full", "--config", CONFIG]),
+             lambda: dfdp_net.train(args),
              lambda: Lens("lenses/rf35mm/lens_web.json"),
              lambda: fit_psfnet.main(["--skip-analysis", "--iters", "0"])]
     for call in calls:
