@@ -50,13 +50,31 @@ Phases, each printing its elapsed seconds:
  10. train-step reference: three 128x192 bs 2 steps of the shipped net on
      the JAX package's stored renders and on the card's own render, held
      against sdirt_tpu_torch/reference/train_step_jax_cpu.json;
- 11. the kernels line, then the card's name and power limit, then the
+ 11. render variants: ``python -m sdirt_tpu_torch.gate_render_variants``
+     through its main(), for rf50mm and rf35mm at 512x768, ks 21: fused,
+     fused_int8, scan and scan_f32 on the config's mlp, scan, basis and
+     basis_int8 on the promoted student mlpb@256x48; every row's flat PSNR
+     (both views) within 0.1 dB of the JAX package's CPU scan of the same
+     lens and net, or, where the JAX CPU run of the same variant is itself
+     outside that gate, of that run (and of it in any case where it exists),
+     the perceptual distance within 5%
+     (sdirt_tpu_torch/reference/render_variants_jax_cpu.json); K2 launched
+     by the fused rows only; K2 vs plain on the fused_int8 PSF, the int8
+     path on the card vs on the CPU; per variant and lens the render
+     call's time and peak memory (at rf50mm with a torch.profiler
+     breakdown), and the times of its parts;
+ 12. rf35mm serve path: ``--stage sample`` on configs/dfdp_by_sdirt_rf35mm.yml
+     through dfdp_net.main(), held against
+     sdirt_tpu_torch/reference/stage_sample_rf35mm_jax_cpu.json (flat PSNR
+     0.1 dB, depth 0.005, perceptual distance 5%);
+ 13. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
 """
 
 import collections
+import copy
 import json
 import os
 import signal
@@ -79,6 +97,14 @@ KS = 21
 KERNEL_TOL = 1e-3
 PSNR_TOL_DB = 0.1      # the JAX package's render-variant gate
 DEPTH_TOL = 0.005
+# the weight-free perceptual distance (MS-SSIM + GMSD) of a flat render
+# against the JAX package's on the CPU, relative
+PERC_RTOL = 0.05
+BASIS_NET = "mlpb@256x48"       # both lenses' promoted surrogate
+GATE_ROWS = {"mlp": ["--variants", "fused", "fused_int8", "scan", "--f32-baseline"],
+             BASIS_NET: ["--variants", "scan", "basis", "basis_int8"]}
+BF16_FLOPS = 989e12             # H100 SXM, dense bf16 tensor cores
+INT8_OPS = 1979e12              # H100 SXM, dense int8 tensor cores
 # K1 vs its plain version, rays live in both: the JAX package's own
 # fused-vs-specialized gate (tests/test_fused_trace.py); at most 1 in 10^5
 # rays may differ in validity; PSF L1 per point, ckpt/FUSED_TRACE.json's gate
@@ -615,6 +641,228 @@ def train_step_reference(dfdp_net):
     return out
 
 
+def check_serve_path(lens_name, result, ref):
+    """Hold a --stage sample result against the JAX package's CPU run: per
+    flat scene (matched by distance) PSNR and the perceptual distance
+    (check_flat), per depth set every metric within DEPTH_TOL."""
+    ref_flat = {r["distance_mm"]: r for r in ref["flat"]}
+    for rec in result["flat"]:
+        r = ref_flat[rec["distance_mm"]]
+        failed = check_flat(f"{lens_name} flat {rec['distance_mm']} mm", rec, r)
+        if failed:
+            raise RuntimeError(f"off the JAX reference: {failed}")
+        print(f"{lens_name} flat {rec['distance_mm']} mm ssim_l/r: {rec['ssim_l']:.4f} "
+              f"{rec['ssim_r']:.4f} (JAX CPU {r['ssim_l']:.4f} {r['ssim_r']:.4f})")
+    if len(result["flat"]) != len(ref_flat):
+        raise RuntimeError("flat scene count differs from the reference")
+    for tag, m in result["depth"].items():
+        for k, v in ref["depth"][tag].items():
+            d = m[k] - v
+            print(f"{lens_name} depth {tag} {k}: {m[k]:.6f} (JAX CPU {v:.6f}, diff {d:+.2e})")
+            if not (np.isfinite(m[k]) and abs(d) <= DEPTH_TOL):
+                raise RuntimeError(f"{lens_name} depth {tag} {k} off the JAX reference")
+    print(f"{lens_name} serve path host seconds: {result['seconds']}")
+
+
+def check_flat(what, rec, ref):
+    """Hold one set of flat scores against the JAX package's: PSNR of both
+    views within PSNR_TOL_DB, the perceptual distance within PERC_RTOL.
+    Prints each and returns the names of those outside."""
+    failed = []
+    for k in ("psnr_l", "psnr_r"):
+        d = rec[k] - ref[k]
+        print(f"{what} {k}: {rec[k]:.4f} dB (JAX CPU {ref[k]:.4f}, diff {d:+.4f})")
+        if not (np.isfinite(rec[k]) and abs(d) <= PSNR_TOL_DB):
+            failed.append(f"{what} {k}")
+    for k in ("perc_l", "perc_r"):
+        rel = rec[k] / ref[k] - 1
+        print(f"{what} {k}: {rec[k]:.5f} (JAX CPU {ref[k]:.5f}, {rel:+.2%})")
+        if not (np.isfinite(rec[k]) and abs(rel) <= PERC_RTOL):
+            failed.append(f"{what} {k}")
+    return failed
+
+
+def mean_scores(records):
+    keys = ("psnr_l", "psnr_r", "ssim_l", "ssim_r", "perc_l", "perc_r")
+    return {k: float(np.mean([r[k] for r in records])) for k in keys}
+
+
+def gate_rows(gate, fused_conv, lens_name, net, jax_rows):
+    """The variant gate's rows of one lens and surrogate on the card, each
+    held against the JAX package's CPU rows: the scan of the same net, or,
+    where the JAX CPU run of the row's own variant is itself outside
+    PSNR_TOL_DB of that scan, its own variant (and that run in any case
+    where it exists). Returns the rows, the K2 launches of the gate's whole
+    run and the checks that failed."""
+    argv = ["--config", f"configs/dfdp_by_sdirt_{lens_name}.yml", "--device", "cuda",
+            *GATE_ROWS[net]]
+    if net != "mlp":
+        argv += ["--model", net, "--psfnet", f"./ckpt/{lens_name}/F4_PSFNet_{net}"]
+    fused_conv.launches = 0
+    rows = gate.main(argv)
+    launches = fused_conv.launches
+    scan = jax_rows[f"{net}/scan"]
+    failed = []
+    for r in rows:
+        variant = r["variant"]
+        what = f"{lens_name} {net} {variant}"
+        same = jax_rows.get(f"{net}/{variant}") if variant != "scan" else None
+        refs = [("JAX CPU scan", scan)]
+        if same is not None:
+            own = [same[k] - scan[k] for k in ("psnr_l", "psnr_r")]
+            print(f"{what}: the JAX CPU {variant} itself is {own[0]:+.4f} / "
+                  f"{own[1]:+.4f} dB from its scan")
+            if max(map(abs, own)) > PSNR_TOL_DB:
+                d = [r[k] - scan[k] for k in ("psnr_l", "psnr_r")]
+                print(f"{what} vs the JAX CPU scan (not gated: the variant itself "
+                      f"misses it): {d[0]:+.4f} / {d[1]:+.4f} dB")
+                refs = []
+            refs.append((f"JAX CPU {variant}", same))
+        for name, ref in refs:
+            failed += check_flat(f"{what} vs {name}", r, ref)
+        print(f"{what}: K2 launches {r['k2_launches']}")
+        if (r["k2_launches"] > 0) != variant.startswith("fused"):
+            failed.append(f"{what}: K2 launched {r['k2_launches']} times")
+    return rows, launches, failed
+
+
+def variant_times(dfdp_net, fused_conv, smi):
+    """Render-call time (CUDA events, after warm-up) and peak memory of each
+    variant on both lenses at 512x768, and at rf50mm the parts: the bf16 and
+    int8 trunks, the PSF MLP, the basis coefficient MLP, its conv and
+    contraction; K2 against its plain version on the fused_int8 path's PSF
+    and the int8 trunk on the card against the CPU. Returns the figures."""
+    from sdirt_tpu_torch.render import basis, mlp_fast
+    from sdirt_tpu_torch.render.camera import degamma
+    from sdirt_tpu_torch.render.pipeline import get_quant, query_points
+
+    out = {"render": {}}
+    for lens_name in ("rf50mm", "rf35mm"):
+        args = dfdp_net.load_config(f"configs/dfdp_by_sdirt_{lens_name}.yml")
+        _, mlp_lens = dfdp_net.get_lens(args, device="cuda")
+        args["test"].update(psfnet_model=BASIS_NET,
+                            psfnet_path=f"./ckpt/{lens_name}/F4_PSFNet_{BASIS_NET}")
+        _, basis_lens = dfdp_net.get_lens(args, device="cuda")
+        f4, f20, depth = dfdp_net.get_flat_sample_set(args)[0]
+        img = torch.from_numpy(f20[None, :3]).cuda()
+        dist = torch.from_numpy(-depth[None] * 1e3).cuda()
+        for lens, variants in ((mlp_lens, ("fused", "fused_int8", "scan", "scan_f32")),
+                               (basis_lens, ("scan", "basis", "basis_int8"))):
+            for v in variants:
+                kw = ({"variant": "scan", "mlp_bf16": False} if v == "scan_f32"
+                      else {"variant": v})
+                call = lambda: lens.render(img, dist, None, **kw)  # noqa: E731
+                ms = cuda_time_ms(call, 5)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                call()
+                torch.cuda.synchronize()
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+                key = f"{lens_name} {lens.model_name} {v}"
+                out["render"][key] = {"ms": ms, "peak_gib": peak}
+                print(f"render call {key} at {img.shape[-2]}x{img.shape[-1]}: {ms:.3f} ms, "
+                      f"peak memory "
+                      f"{peak:.3f} GiB above the {base / 2**30:.3f} GiB held ({smi})")
+                if lens_name == "rf50mm":
+                    print_profile(f"render call {key}", *device_profile(call, 3), 3, ms,
+                                  top=6)
+        if lens_name != "rf50mm":
+            continue
+        with torch.no_grad():
+            o = query_points(dist, mlp_lens.d_sensor, mlp_lens.d_min, mlp_lens.d_max)
+            lum = degamma(img.permute(0, 2, 3, 1)).contiguous()
+            net = mlp_lens.net
+            t = time.perf_counter()
+            mlp_fast.quantize_mlp(net)
+            quant_s = time.perf_counter() - t
+            quant = get_quant(net)
+            layers = mlp_fast.dense_layers(net)
+            x = mlp_fast.stack_views(o)
+            rows = x.shape[0]
+            parts = {
+                "bf16 trunk (layers 0-9)": lambda: mlp_fast.bf16_trunk(layers[:-1], x),
+                "int8 trunk (layers 0-9)": lambda: mlp_fast.quant_trunk(layers, quant, x),
+                "PSF MLP bf16": lambda: mlp_fast.mlp_psf_tapmajor(net, o, KS),
+                "PSF MLP int8": lambda: mlp_fast.mlp_psf_tapmajor(net, o, KS, quant=quant)}
+            bnet = basis_lens.net
+            bquant = get_quant(bnet)
+            kdim = bnet.basis_k
+            n, h, w, c = lum.shape
+            pad = (KS - 1) // 2
+            g_img = torch.nn.functional.pad(lum.permute(0, 3, 1, 2).reshape(n * c, 1, h, w),
+                                            (pad, pad, pad, pad), mode="replicate")
+            bank = torch.rand((2 * kdim + 2, 1, KS, KS), device="cuda")
+            g = basis._conv_bank(g_img, bank, torch.bfloat16).reshape(n, c, 2 * kdim + 2, h, w)
+            coeff = basis.basis_coeffs(bnet, o).reshape(n, 2, h, w, kdim).to(
+                torch.bfloat16).permute(0, 1, 4, 2, 3)
+            parts.update({
+                "basis coefficient MLP bf16": lambda: basis.basis_coeffs(bnet, o),
+                "basis coefficient MLP int8": lambda: basis.basis_coeffs(bnet, o, quant=bquant),
+                "basis conv (2K+2 = 98 kernels, bf16)":
+                    lambda: basis._conv_bank(g_img, bank, torch.bfloat16),
+                "basis K-contraction (both views)":
+                    lambda: (basis._contract(coeff[:, 0], g[:, :, :kdim]),
+                             basis._contract(coeff[:, 1], g[:, :, kdim + 1:2 * kdim + 1])),
+                "basis_dp_conv bf16": lambda: basis.basis_dp_conv(bnet, o, lum, KS),
+                "basis_dp_conv int8": lambda: basis.basis_dp_conv(bnet, o, lum, KS,
+                                                                  quant=bquant)})
+            part_ms = {k: cuda_time_ms(fn, 5) for k, fn in parts.items()}
+            width = layers[2][0].shape[0]
+            trunk_ops = 2 * rows * width * width * len(quant["wq"])
+            bflops = 2 * rows * sum(w.numel() for w, _ in mlp_fast.dense_layers(bnet)[:-1])
+            conv_flops = 2 * n * c * h * w * (2 * kdim + 2) * KS * KS
+            for k, ms in part_ms.items():
+                print(f"  part {k}: {ms:.3f} ms")
+            print(f"  the trunk's {len(quant['wq'])} {width}x{width} GEMMs over {rows} rows: "
+                  f"{trunk_ops / 1e12:.3f} TOP, bound {trunk_ops / BF16_FLOPS * 1e3:.3f} ms "
+                  f"in bf16, {trunk_ops / INT8_OPS * 1e3:.3f} ms in int8; quantize_mlp "
+                  f"{quant_s:.3f} s of host time once per net and weight state")
+            print(f"  basis coefficient MLP: {bflops / 1e12:.3f} TFLOP (bound "
+                  f"{bflops / BF16_FLOPS * 1e3:.3f} ms); conv {conv_flops / 1e12:.3f} TFLOP "
+                  f"(bound {conv_flops / BF16_FLOPS * 1e3:.3f} ms), output "
+                  f"{g.numel() * 2 / 1e6:.1f} MB of bf16")
+            del g, coeff, g_img
+            # the int8 path on the card against the CPU, on 32768 of the
+            # pixels: the int8 products are exact on both, but layer 1's f32
+            # sums are taken in another order, so a few activations round
+            # to the neighbouring int8 step; held at the PSF, in the JAX
+            # package's bf16 band (tests/test_fused_render.py)
+            sub = o.reshape(1, -1, 3)[:, ::max(1, rows // 65536)][:, :32768]
+            cpu_net = copy.deepcopy(net).cpu()
+            cpu_quant = {k: [t.cpu() for t in v] for k, v in quant.items()}
+            trunks = [mlp_fast.quant_trunk(mlp_fast.dense_layers(m), q, mlp_fast.stack_views(p))
+                      for m, q, p in ((net, quant, sub), (cpu_net, cpu_quant, sub.cpu()))]
+            flips = int((trunks[0].cpu() != trunks[1]).sum())
+            psfs = [mlp_fast.mlp_psf_pixelmajor(m, p, KS, quant=q).cpu()
+                    for m, q, p in ((net, quant, sub), (cpu_net, cpu_quant, sub.cpu()))]
+            trunk_diff = float((psfs[0] - psfs[1]).abs().max())
+            print(f"  int8 path, card vs CPU on {sub.shape[1]} pixels x 2 views: trunk "
+                  f"activations that differ {flips} of {trunks[1].numel()}; normalised "
+                  f"PSF max |diff| {trunk_diff:.3e} (tolerance 5e-3)")
+            if not trunk_diff <= 5e-3:
+                raise RuntimeError("the int8 path on the card disagrees with the CPU")
+            del trunks, psfs, cpu_net
+            # K2 on the fused_int8 path's PSF
+            psf_tm = mlp_fast.mlp_psf_tapmajor(net, o, KS, quant=quant)
+            got = fused_conv.fused_dp_conv_tapmajor(lum, psf_tm, KS)
+            ref = fused_conv.fused_dp_conv_tapmajor_ref(lum, psf_tm, KS)
+            k2_err = max_diff(got, ref)
+            del got, ref
+            if not k2_err <= KERNEL_TOL:
+                raise RuntimeError("K2 disagrees with its plain version on the int8 PSF")
+            k2_ms = cuda_time_ms(lambda: fused_conv.fused_dp_conv_tapmajor(lum, psf_tm, KS), 20)
+            bound_ms, bound_by = k2_bound_ms(n, h, w, c, KS)
+            print(f"K2 on the fused_int8 PSF {tuple(lum.shape)}: {k2_ms:.4f} ms per launch "
+                  f"(bound {bound_ms:.4f} ms by {bound_by}); vs plain {k2_err:.3e}")
+            out.update(parts_ms=part_ms, trunk_card_vs_cpu=trunk_diff,
+                       k2_int8={"ms": k2_ms, "max_abs_err": k2_err, "bound_ms": bound_ms})
+            del psf_tm, o, lum, x
+        del mlp_lens, basis_lens
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -711,26 +959,7 @@ def main():
     print(f"K2 launches on the serve path: {launches}")
     if launches <= 0:
         raise RuntimeError("the serve path did not launch K2")
-    ref_flat = {r["distance_mm"]: r for r in ref["flat"]}
-    for rec in result["flat"]:
-        r = ref_flat[rec["distance_mm"]]
-        for k in ("psnr_l", "psnr_r"):
-            d = rec[k] - r[k]
-            print(f"flat {rec['distance_mm']} mm {k}: {rec[k]:.4f} dB "
-                  f"(JAX CPU {r[k]:.4f}, diff {d:+.4f})")
-            if not (np.isfinite(rec[k]) and abs(d) <= PSNR_TOL_DB):
-                raise RuntimeError(f"flat {k} off the JAX reference")
-        print(f"flat {rec['distance_mm']} mm ssim_l/r: {rec['ssim_l']:.4f} "
-              f"{rec['ssim_r']:.4f} (JAX CPU {r['ssim_l']:.4f} {r['ssim_r']:.4f})")
-    if len(result["flat"]) != len(ref_flat):
-        raise RuntimeError("flat scene count differs from the reference")
-    for tag, m in result["depth"].items():
-        for k, v in ref["depth"][tag].items():
-            d = m[k] - v
-            print(f"depth {tag} {k}: {m[k]:.6f} (JAX CPU {v:.6f}, diff {d:+.2e})")
-            if not (np.isfinite(m[k]) and abs(d) <= DEPTH_TOL):
-                raise RuntimeError(f"depth {tag} {k} off the JAX reference")
-    print(f"serve path host seconds: {result['seconds']}")
+    check_serve_path("rf50mm", result, ref)
     phase("3 serve path", t)
 
     # -- 4. K2 times ---------------------------------------------------------
@@ -920,10 +1149,58 @@ def main():
     train_ref = train_step_reference(dfdp_net)
     phase("10 train-step reference", t)
 
-    # -- 11. result ----------------------------------------------------------
+    # -- 11. render variants ---------------------------------------------------
+    t = time.perf_counter()
+    from sdirt_tpu_torch import gate_render_variants
+
+    with open(os.path.join(ROOT, "sdirt_tpu_torch", "reference",
+                           "render_variants_jax_cpu.json")) as f:
+        variant_ref = json.load(f)
+    variant_rows, k2_by_gate, failed = {}, {}, []
+    for lens_name in ("rf50mm", "rf35mm"):
+        jax_rows = {k: mean_scores(v)
+                    for k, v in variant_ref["lenses"][lens_name]["rows"].items()}
+        for net in GATE_ROWS:
+            rows, k2_by_gate[lens_name, net], row_failed = gate_rows(
+                gate_render_variants, fused_conv, lens_name, net, jax_rows)
+            failed += row_failed
+            for r in rows:
+                variant_rows[f"{lens_name} {net} {r['variant']}"] = {
+                    k: r[k] for k in ("psnr_l", "psnr_r", "ssim_l", "ssim_r",
+                                      "perc_l", "perc_r", "k2_launches")}
+    k2_int8 = sum(v["k2_launches"] for k, v in variant_rows.items()
+                  if k.endswith(" fused_int8"))
+    print(f"K2 launches on the fused_int8 path: {k2_int8} (of {sum(k2_by_gate.values())} "
+          "in the gate's runs)")
+    if k2_int8 <= 0:
+        failed.append("the fused_int8 path did not launch K2")
+    if failed:
+        raise RuntimeError(f"render variants off the JAX reference: {failed}")
+    variant_stats = variant_times(dfdp_net, fused_conv, smi)
+    phase("11 render variants", t)
+
+    # -- 12. rf35mm serve path --------------------------------------------------
+    t = time.perf_counter()
+    with open(os.path.join(ROOT, "sdirt_tpu_torch", "reference",
+                           "stage_sample_rf35mm_jax_cpu.json")) as f:
+        ref35 = json.load(f)
+    with tempfile.TemporaryDirectory() as out:
+        fused_conv.launches = 0
+        result35 = dfdp_net.main(["--stage", "sample", "--config",
+                                  "configs/dfdp_by_sdirt_rf35mm.yml",
+                                  "--device", "cuda", "--out", out])
+        launches35 = fused_conv.launches
+    print(f"K2 launches on the rf35mm serve path: {launches35}")
+    if launches35 <= 0:
+        raise RuntimeError("the rf35mm serve path did not launch K2")
+    check_serve_path("rf35mm", result35, ref35)
+    phase("12 rf35mm serve path", t)
+
+    # -- 13. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
-    err = max([main_diff, train_stats["k2"]["max_abs_err"], *diffs.values()])
+    err = max([main_diff, train_stats["k2"]["max_abs_err"],
+               variant_stats["k2_int8"]["max_abs_err"], *diffs.values()])
     k1_err = max(v[0] for v in k1_check.values())
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
@@ -938,14 +1215,18 @@ def main():
         "name": "fused_dp_conv_tapmajor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_dp_conv.cu",
         "replaces": "sdirt_tpu/render/fused_conv_pallas.py:81",
-        "launches": launches + train_stats["k2_launches"],
-        "launches_by_path": {"serve": launches, "train": train_stats["k2_launches"]},
+        "launches": launches + train_stats["k2_launches"] + k2_int8 + launches35,
+        "launches_by_path": {"serve": launches, "train": train_stats["k2_launches"],
+                             "fused_int8": k2_int8, "serve_rf35mm": launches35},
         "max_abs_err": err, "max_abs_diff": err,
         "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "train_shape": train_stats["k2"]}],
+        "train_shape": train_stats["k2"], "fused_int8_psf": variant_stats["k2_int8"]}],
         "train": {k: v for k, v in train_stats.items() if k not in ("k2",)},
-        "train_step_reference": train_ref}))
+        "train_step_reference": train_ref,
+        "variants": {"gate": variant_rows, "render": variant_stats["render"],
+                     "parts_ms": variant_stats["parts_ms"],
+                     "int8_trunk_card_vs_cpu": variant_stats["trunk_card_vs_cpu"]}}))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

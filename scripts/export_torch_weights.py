@@ -1,21 +1,21 @@
 #!/usr/bin/env python
-"""Export the shipped orbax checkpoints that the PyTorch port's serve path
-needs to ``.npz`` files, and turn the JAX package's ``--stage sample`` log
-into the port's reference numbers.
+"""Export the shipped orbax checkpoints that the PyTorch port loads to
+``.npz`` files, and turn the JAX package's ``--stage sample`` log into the
+port's reference numbers.
 
 The port (``sdirt_tpu_torch``) runs on a machine with neither JAX nor orbax,
-so the two trees of ``configs/dfdp_by_sdirt_rf50mm.yml`` are restored here,
-on the CPU, with the JAX package's own loaders and written as flat float32
-trees (``"params/Dense_0/kernel"``, ``"batch_stats/.../mean"``, ...):
-
-  ckpt/rf50mm/F4_PSFNet_mlp    -> sdirt_tpu_torch/weights/rf50mm/F4_PSFNet_mlp.npz
-  ckpt/rf50mm/Sdirt_best_acc1  -> sdirt_tpu_torch/weights/rf50mm/Sdirt_best_acc1.npz
+so the trees are restored here, on the CPU, with the JAX package's own
+loaders and written as flat float32 trees (``"params/Dense_0/kernel"``,
+``"batch_stats/.../mean"``, ...), ``ckpt/<lens>/<name>`` ->
+``sdirt_tpu_torch/weights/<lens>/<name>.npz``, for each of EXPORTS: the
+surrogates and depth nets of configs/dfdp_by_sdirt_{rf50mm,rf35mm}.yml and
+both lenses' promoted basis students (ckpt/*/PROMOTED_SURROGATE.json).
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/export_torch_weights.py
   JAX_PLATFORMS=cpu SDIRT_RENDER_VARIANT=scan \\
-      python apps/dfdp_net.py --stage sample > stage_sample.log 2>&1
-  python scripts/export_torch_weights.py --reference-log stage_sample.log
+      python apps/dfdp_net.py --stage sample [--config CFG] > stage_sample.log 2>&1
+  python scripts/export_torch_weights.py --reference-log stage_sample.log [--config CFG]
 """
 
 from __future__ import annotations
@@ -32,11 +32,13 @@ sys.path.insert(0, ROOT)
 
 import numpy as np
 
-OUT_DIR = os.path.join(ROOT, "sdirt_tpu_torch", "weights", "rf50mm")
-REF_JSON = os.path.join(ROOT, "sdirt_tpu_torch", "reference",
-                        "stage_sample_jax_cpu.json")
-PSFNET = "ckpt/rf50mm/F4_PSFNet_mlp"
-DEPTHNET = "ckpt/rf50mm/Sdirt_best_acc1"
+WEIGHTS_DIR = os.path.join(ROOT, "sdirt_tpu_torch", "weights")
+REF_DIR = os.path.join(ROOT, "sdirt_tpu_torch", "reference")
+REF_JSON = os.path.join(REF_DIR, "stage_sample_jax_cpu.json")
+DEFAULT_CONFIG = "configs/dfdp_by_sdirt_rf50mm.yml"
+EXPORTS = (("rf50mm", "F4_PSFNet_mlp"), ("rf50mm", "Sdirt_best_acc1"),
+           ("rf50mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "F4_PSFNet_mlp"),
+           ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"))
 
 
 def _flat(tree, prefix):
@@ -46,18 +48,20 @@ def _flat(tree, prefix):
     return {f"{prefix}/{k}": np.asarray(v, np.float32) for k, v in flat.items()}
 
 
-def psfnet_tree():
-    """The F/4 rf50mm PSF surrogate, restored by PSFNetLens.load_net."""
+def psfnet_tree(lens="rf50mm", name="F4_PSFNet_mlp"):
+    """A PSF surrogate ``ckpt/<lens>/<name>`` (architecture from the name's
+    ``PSFNet_<model>`` suffix), restored by PSFNetLens.load_net."""
     from sdirt_tpu.psfnet.surrogate import PSFNetLens
 
-    lens = PSFNetLens(os.path.join(ROOT, "lenses/rf50mm/lens_web.json"),
-                      sensor_res=(512, 768), kernel_size=21)
-    lens.load_net(os.path.join(ROOT, PSFNET))
-    return _flat(lens.params["params"], "params")
+    surrogate = PSFNetLens(os.path.join(ROOT, f"lenses/{lens}/lens_web.json"),
+                           model_name=name.split("PSFNet_")[1],
+                           sensor_res=(512, 768), kernel_size=21)
+    surrogate.load_net(os.path.join(ROOT, "ckpt", lens, name))
+    return _flat(surrogate.params["params"], "params")
 
 
-def depthnet_tree():
-    """The shipped DDDNet, restored by restore_inference_ckpt against an
+def depthnet_tree(lens="rf50mm"):
+    """The shipped DDDNet of a lens, restored by restore_inference_ckpt against an
     abstract template of the net at 128x192 (the smallest input the
     two-scale SPP of the feature tower accepts; parameter shapes do not
     depend on it)."""
@@ -72,22 +76,27 @@ def depthnet_tree():
         jax.random.PRNGKey(0), jnp.zeros((1, 6, 128, 192)), train=False))
     abstract = jax.tree.map(
         lambda s: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=dev), shapes)
-    params, stats = restore_inference_ckpt(os.path.join(ROOT, DEPTHNET),
+    params, stats = restore_inference_ckpt(os.path.join(ROOT, "ckpt", lens,
+                                                        "Sdirt_best_acc1"),
                                            abstract["params"],
                                            abstract["batch_stats"])
     return {**_flat(params, "params"), **_flat(stats, "batch_stats")}
 
 
-def export(out_dir=OUT_DIR):
-    os.makedirs(out_dir, exist_ok=True)
+def tree(lens, name):
+    return depthnet_tree(lens) if name.startswith("Sdirt") else psfnet_tree(lens, name)
+
+
+def export(weights_dir=WEIGHTS_DIR):
     paths = {}
-    for name, tree in (("F4_PSFNet_mlp", psfnet_tree()),
-                       ("Sdirt_best_acc1", depthnet_tree())):
-        path = os.path.join(out_dir, f"{name}.npz")
-        np.savez(path, **tree)
-        paths[name] = path
-        print(f"{path}: {len(tree)} arrays, "
-              f"{sum(v.size for v in tree.values())} float32 values")
+    for lens, name in EXPORTS:
+        t = tree(lens, name)
+        os.makedirs(os.path.join(weights_dir, lens), exist_ok=True)
+        path = os.path.join(weights_dir, lens, f"{name}.npz")
+        np.savez(path, **t)
+        paths[lens, name] = path
+        print(f"{path}: {len(t)} arrays, "
+              f"{sum(v.size for v in t.values())} float32 values")
     return paths
 
 
@@ -98,15 +107,16 @@ _MSE_MAE = re.compile(r"Avg_mse/mae\(\d+\): ([-\d.e]+), ([-\d.e]+)")
 _ACC = re.compile(r"Avg_acc_est\(\d+\): ([-\d.e]+), ([-\d.e]+), ([-\d.e]+)")
 
 
-def parse_stage_sample_log(text: str) -> dict:
-    """The per-scene flat-capture scores and the per-set depth metrics that
-    apps/dfdp_net.py --stage sample logs."""
+def parse_stage_sample_log(text: str, config: str = DEFAULT_CONFIG) -> dict:
+    """The per-scene flat-capture scores (PSNR, SSIM, perceptual distance)
+    and the per-set depth metrics that apps/dfdp_net.py --stage sample
+    logs."""
     flat, depth, current = [], {}, None
     for line in text.splitlines():
         if m := _FLAT_ROW.search(line):
             row = ast.literal_eval(m.group(1))
             flat.append(dict(zip(("idx", "distance_mm", "psnr_l", "psnr_r",
-                                  "ssim_l", "ssim_r"), row[:6])))
+                                  "ssim_l", "ssim_r", "perc_l", "perc_r"), row)))
         elif m := _DEPTH_SET.search(line):
             current = m.group(1)
         elif (m := _MSE_MAE.search(line)) and current:
@@ -119,13 +129,24 @@ def parse_stage_sample_log(text: str) -> dict:
             current = None
     if not flat or set(depth) != {"box", "f2d", "casual"}:
         raise ValueError("log holds no complete --stage sample run")
+    command = ("JAX_PLATFORMS=cpu SDIRT_RENDER_VARIANT=scan "
+               "python apps/dfdp_net.py --stage sample")
+    if config != DEFAULT_CONFIG:
+        command += f" --config {config}"
     return {
-        "command": "JAX_PLATFORMS=cpu SDIRT_RENDER_VARIANT=scan "
-                   "python apps/dfdp_net.py --stage sample",
-        "config": "configs/dfdp_by_sdirt_rf50mm.yml",
+        "command": command,
+        "config": config,
         "flat": flat,
         "depth": depth,
     }
+
+
+def reference_json(config: str) -> str:
+    """Where the reference of a config's --stage sample run is kept."""
+    if config == DEFAULT_CONFIG:
+        return REF_JSON
+    lens = re.search(r"rf\d+mm", config).group(0)
+    return os.path.join(REF_DIR, f"stage_sample_{lens}_jax_cpu.json")
 
 
 def main():
@@ -134,15 +155,18 @@ def main():
     ap.add_argument("--reference-log",
                     help="write the reference JSON from this --stage sample "
                          "log instead of exporting weights")
+    ap.add_argument("--config", default=DEFAULT_CONFIG,
+                    help="the config the --stage sample run was given")
     args = ap.parse_args()
     if args.reference_log:
         with open(args.reference_log) as f:
-            ref = parse_stage_sample_log(f.read())
-        os.makedirs(os.path.dirname(REF_JSON), exist_ok=True)
-        with open(REF_JSON, "w") as f:
+            ref = parse_stage_sample_log(f.read(), args.config)
+        path = reference_json(args.config)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
             json.dump(ref, f, indent=1)
             f.write("\n")
-        print(REF_JSON)
+        print(path)
         return
     import jax
 

@@ -17,13 +17,15 @@
                   net to ``ckpt_out`` and the resumable train state to
                   ``train_state_dir``.
 
-Every render is the port's ``fused`` variant (bf16 MLP -> the K2 CUDA
-kernel); the JAX package's default, ``fused_int8``, is not ported yet.
-Matrix products and convolutions run in full f32 (TF32 off). The evaluation
-stages write ``DPimages/res.csv`` (flat scores) and ``depth.csv`` under
+Every render takes the variant SDIRT_RENDER_VARIANT names (render/pipeline.py:
+scan, fused, fused_int8, basis, basis_int8), else the port's default
+``fused`` (bf16 MLP -> the K2 CUDA kernel); the JAX package defaults to
+``fused_int8``. Matrix products and convolutions run in full f32 (TF32 off).
+The evaluation stages write ``DPimages/res.csv`` (flat scores: PSNR, SSIM
+and the weight-free perceptual distance per view) and ``depth.csv`` under
 ``--out``. Not ported yet (ROADMAP.md §1): ``--train-mode deblur`` (item 5),
-``--data-parallel`` (item 8), ``--save-images``, the perceptual score, and
-the NYU/FlyingThings3D/Middlebury training sets (item 9).
+``--data-parallel`` (item 8), ``--save-images``, and the
+NYU/FlyingThings3D/Middlebury training sets (item 9).
 """
 
 from __future__ import annotations
@@ -46,8 +48,10 @@ from .dfdp.factory import (get_dataset, get_depth_sample_set,
                            get_depth_test_set, get_flat_sample_set,
                            get_flat_test_set, get_lens, ported_weights)
 from .dfdp.metrics import mask_psnr, mask_ssim
+from .dfdp.perceptual import batch_perceptual
 from .dfdp.monitor import DEPTH_METRICS, ResultsMonitor, select_focus_dist
 from .dfdp.train import create_dfdp_state, dfdp_infer, dfdp_train_step
+from .render.pipeline import resolve_variant
 from .utils.checkpoint import (TrainCheckpointer, read_ckpt_watermark,
                                save_inference_ckpt, write_ckpt_watermark)
 from .utils.config import load_config
@@ -57,24 +61,32 @@ from .utils.stall import StallWatchdog
 
 NOT_PORTED = "{what} is not ported yet (ROADMAP.md §1 item {item})"
 
-FLAT_COLUMNS = ("idx", "distance_mm", "psnr_l", "psnr_r", "ssim_l", "ssim_r")
+FLAT_COLUMNS = ("idx", "distance_mm", "psnr_l", "psnr_r", "ssim_l", "ssim_r",
+                "perc_l", "perc_r")
 
 
-def test_dp_images(lens, flat_set, variant: str = "fused"):
-    """Per-scene PSNR/SSIM of F/20 -> F/4 renders against the F/4 captures."""
+def test_dp_images(lens, flat_set, variant: str | None = None, **render_kw):
+    """Per-scene PSNR, SSIM and perceptual distance (lower is better) of
+    F/20 -> F/4 renders against the F/4 captures, per view. variant: None
+    for SDIRT_RENDER_VARIANT or the port's default; render_kw go to
+    lens.render."""
+    variant = resolve_variant(variant)
     records = []
     for idx in range(len(flat_set)):
         f4, f20, depth = (a[None] for a in flat_set[idx])
         focus = select_focus_dist(depth, 1)
         dist, foc = -depth * 1e3, -focus[:, 0] * 1e3
-        dof_l = lens.render(f20[:, :3], dist, foc, variant)[:, :3].cpu().numpy()
-        dof_r = lens.render(f20[:, 3:], dist, foc, variant)[:, 3:].cpu().numpy()
+        dof_l = lens.render(f20[:, :3], dist, foc, variant, **render_kw)[:, :3]
+        dof_r = lens.render(f20[:, 3:], dist, foc, variant, **render_kw)[:, 3:]
         f4_l, f4_r = f4[:, :3], f4[:, 3:]
+        perc = [round(batch_perceptual(d, f), 5)
+                for d, f in ((dof_l, f4_l), (dof_r, f4_r))]
+        dof_l, dof_r = dof_l.cpu().numpy(), dof_r.cpu().numpy()
         rec = dict(zip(FLAT_COLUMNS, (
             idx, round(float(depth[0, 0, 0, 0] * 1e3)),
             mask_psnr(dof_l, f4_l), mask_psnr(dof_r, f4_r),
-            mask_ssim(dof_l, f4_l), mask_ssim(dof_r, f4_r))))
-        logging.info(f"flat {rec}")
+            mask_ssim(dof_l, f4_l), mask_ssim(dof_r, f4_r), *perc)))
+        logging.info(f"flat ({variant}) {rec}")
         records.append(rec)
     return records
 
@@ -349,9 +361,10 @@ def _depth_net(args, dev):
 
 
 def run_eval(args: dict, stage: str = "sample", device="cuda",
-             variant: str = "fused") -> dict:
+             variant: str | None = None) -> dict:
     """``--stage sample`` (the bundled sample sets) or ``--stage full`` (the
-    config's real test sets); returns {"flat": [per-scene scores],
+    config's real test sets), rendering with ``variant`` (None for
+    SDIRT_RENDER_VARIANT or the port's default); returns {"flat": [per-scene scores],
     "depth": {set: metrics}, "seconds": ...}."""
     if stage not in ("sample", "full"):
         raise ValueError(f"stage {stage!r}")
@@ -373,7 +386,7 @@ def run_eval(args: dict, stage: str = "sample", device="cuda",
             "seconds": {"render_part": t1 - t0, "depth_part": t2 - t1}}
 
 
-def run_sample(args: dict, device="cuda", variant: str = "fused") -> dict:
+def run_sample(args: dict, device="cuda", variant: str | None = None) -> dict:
     """``--stage sample`` on the config's sample sets."""
     return run_eval(args, "sample", device, variant)
 
@@ -427,7 +440,8 @@ def main(argv=None) -> dict:
         return train(args, device=cli.device)
     result = run_eval(args, cli.stage, device=cli.device)
     flat = np.array([[r[k] for k in FLAT_COLUMNS[2:]] for r in result["flat"]])
-    logging.info(f"Avg [psnr_l, psnr_r, ssim_l, ssim_r]: {flat.mean(0)}")
+    logging.info(f"Avg [psnr_l, psnr_r, ssim_l, ssim_r, perc_l, perc_r]: "
+                 f"{flat.mean(0)}")
     write_csv(result, out)
     logging.info(f"results in {out}")
     return result

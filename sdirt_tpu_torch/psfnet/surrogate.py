@@ -13,6 +13,7 @@ quirks are kept:
 
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -21,23 +22,28 @@ import torch
 from ..core.constants import D_SENSOR, DMAX, DMIN, GEO_SPP
 from ..dp.psf import compute_psf
 from ..optics.lens import Lens
-from ..utils.weights import load_state, torch_to_flax
+from ..utils.weights import flax_to_torch, load_npz, torch_to_flax
 from .arch import build_psfnet
 
 DEFAULT_FOC_OFFSETS = np.array([-999.9, -1000.0, -1000.1], np.float32)
 
 
-def pred_psf(fn, inp, ks: int):
+def pred_psf(fn, inp, ks: int, flip_right: bool = True, fn_right=None):
     """Network DP-PSF prediction: left from the net, right mirrored.
 
     fn: [..., 3] -> [..., ks*ks]; inp: [..., 3] normalised (x, y, z).
     Returns [..., 2, ks, ks], sum-normalised per view; the right PSF is the
-    net queried at -x, flipped in kx.
+    net queried at -x (through ``fn_right`` when given), flipped in kx
+    unless ``flip_right`` is False (for local_dp_conv(mirror_right=True),
+    which folds the mirror into its tap index instead).
     """
+    fn_r = fn if fn_right is None else fn_right
     psfl = fn(inp).reshape(*inp.shape[:-1], ks, ks)
     inp_m = inp * torch.tensor([-1.0, 1.0, 1.0], dtype=inp.dtype,
                                device=inp.device)
-    psfr = torch.flip(fn(inp_m).reshape(*inp.shape[:-1], ks, ks), dims=(-1,))
+    psfr = fn_r(inp_m).reshape(*inp.shape[:-1], ks, ks)
+    if flip_right:
+        psfr = torch.flip(psfr, dims=(-1,))
     psf = torch.stack([psfl, psfr], dim=-3)
     return psf / (psf.sum((-1, -2), keepdim=True) + 1e-9)
 
@@ -106,10 +112,26 @@ class PSFNetLens(Lens):
 
     def load_net(self, path: str):
         """Load an exported ``.npz`` tree (scripts/export_torch_weights.py,
-        or ``save_net``)."""
+        or ``save_net``). A tree that does not match this net's layers is
+        merged leaf by leaf where name and shape agree (how a basis student
+        warm-starts its trunk from a PSFMLP of the same width); one that
+        shares no such leaf raises."""
         if not path.endswith(".npz") or not os.path.exists(path):
             raise FileNotFoundError(f"no exported surrogate at {path}")
-        load_state(self.net, path)
+        stored = flax_to_torch(load_npz(path))
+        own = self.net.state_dict()
+        if (set(stored) == set(own)
+                and all(stored[k].shape == v.shape for k, v in own.items())):
+            self.net.load_state_dict(stored, strict=True)
+            return self
+        hits = [k for k, v in own.items()
+                if k in stored and stored[k].shape == v.shape]
+        if not hits:
+            raise ValueError(f"checkpoint at {path} shares no same-shaped "
+                             f"leaves with a {self.model_name} net: wrong "
+                             "checkpoint?")
+        self.net.load_state_dict({**own, **{k: stored[k] for k in hits}})
+        logging.info(f"partial net load: {len(hits)}/{len(own)} leaves from {path}")
         return self
 
     def save_net(self, path: str):
@@ -118,13 +140,16 @@ class PSFNetLens(Lens):
         np.savez(path, **torch_to_flax(self.net.state_dict()))
 
     @torch.no_grad()
-    def render(self, img, depth, foc_dist, variant: str = "fused",
-               train: bool = False, generator=None):
+    def render(self, img, depth, foc_dist, variant: str | None = None,
+               train: bool = False, generator=None, **render_kw):
         """Render a DP pair from an all-in-focus image + depth map.
 
         img: [N, C, H, W] in [0, 1]; depth: [N, 1, H, W] mm (negative);
         foc_dist: [N] mm (negative, unused by the per-pixel render).
-        train=True adds the DP noise, drawn from ``generator``.
+        variant: a render variant (render/pipeline.py), None for
+        SDIRT_RENDER_VARIANT or the port's default.
+        train=True adds the DP noise, drawn from ``generator``. render_kw
+        (``mlp_bf16``, ``scan_right``) go to render_dp.
         Returns [N, 2C, H, W] on this lens's device.
         """
         from ..render.pipeline import render_dp
@@ -134,7 +159,8 @@ class PSFNetLens(Lens):
         return render_dp(self.net, img, depth, foc_dist,
                          d_sensor=self.d_sensor, d_min=self.d_min,
                          d_max=self.d_max, ks=self.kernel_size,
-                         variant=variant, train=train, generator=generator)
+                         variant=variant, train=train, generator=generator,
+                         **render_kw)
 
     # -----------------------------------------------------------------
     # Fit-quality evaluation

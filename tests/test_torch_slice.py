@@ -126,6 +126,49 @@ def test_import_guard_covers_the_training_slice():
     assert set(TRAIN_SLICE) <= files
 
 
+# the modules of the render-variants slice
+VARIANT_SLICE = ("psfnet/arch.py", "psfnet/surrogate.py", "render/mlp_fast.py",
+                 "render/basis.py", "render/pipeline.py", "dfdp/perceptual.py",
+                 "gate_render_variants.py")
+
+
+def test_import_guard_covers_the_variants_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(VARIANT_SLICE) <= files
+
+
+def test_gate_entry_point_defaults_to_the_card():
+    from sdirt_tpu_torch import gate_render_variants
+
+    assert gate_render_variants.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("variant", ["scan", "fused", "fused_int8", "basis",
+                                     "basis_int8"])
+def test_variants_raise_without_a_card(monkeypatch, variant):
+    """Each variant, asked for on the card (the default device), raises
+    without one instead of running on the CPU."""
+    from sdirt_tpu_torch import gate_render_variants
+    from sdirt_tpu_torch.render.pipeline import VARIANTS
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    assert variant in VARIANTS
+    monkeypatch.chdir(ROOT)
+    basis = variant.startswith("basis")
+    argv = ["--variants", variant, "--config", "configs/dfdp_by_sdirt_rf35mm.yml"]
+    if basis:
+        argv += ["--model", "mlpb@256x48", "--psfnet",
+                 "./ckpt/rf35mm/F4_PSFNet_mlpb@256x48"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gate_render_variants.main(argv)
+    monkeypatch.setenv("SDIRT_RENDER_VARIANT", variant)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dfdp_net.main(["--stage", "sample", "--config",
+                       "configs/dfdp_by_sdirt_rf35mm.yml"])
+
+
 ENTRY_POINTS = [PSFNetLens.__init__, Lens.__init__, basenet.build_basenet,
                 factory.get_lens, dfdp_net.run_sample, dfdp_net.run_eval,
                 dfdp_net.train, resolve_device]

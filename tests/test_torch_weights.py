@@ -73,3 +73,57 @@ def test_committed_exports_equal_fresh_export(name):
     for k, v in fresh.items():
         assert committed[k].dtype == np.float32
         np.testing.assert_array_equal(committed[k], v, err_msg=k)
+
+
+NEW_EXPORTS = [("rf50mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "F4_PSFNet_mlp"),
+               ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1")]
+
+
+def _export_script():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_weights",
+        os.path.join(ROOT, "scripts", "export_torch_weights.py"))
+    export = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(export)
+    return export
+
+
+@pytest.mark.parametrize("lens,name", NEW_EXPORTS, ids=[f"{l}/{n}" for l, n in NEW_EXPORTS])
+def test_lens_exports_equal_fresh_export(lens, name):
+    """The rf35mm trees and both lenses' promoted basis students: the
+    committed .npz equal a fresh restore of the orbax trees, and the port
+    builds each net from its name and loads it strictly."""
+    fresh = _export_script().tree(lens, name)
+    path = os.path.join(ROOT, "sdirt_tpu_torch", "weights", lens, f"{name}.npz")
+    committed = load_npz(path)
+    assert set(committed) == set(fresh)
+    for k, v in fresh.items():
+        assert committed[k].dtype == np.float32
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    if name.startswith("Sdirt"):
+        build_basenet(path, device="cpu")
+    else:
+        from sdirt_tpu_torch.utils.weights import load_state
+
+        load_state(build_psfnet(name.split("PSFNet_")[1], 21), path)
+
+
+def test_exports_are_what_the_port_loads():
+    """The script exports the trees the port's configs and promoted
+    surrogates name, and nothing else."""
+    export = _export_script()
+    names = {(l, n) for l, n in export.EXPORTS}
+    assert names == {("rf50mm", "F4_PSFNet_mlp"), ("rf50mm", "Sdirt_best_acc1"),
+                     *NEW_EXPORTS}
+    on_disk = {(l, f[:-4]) for l in ("rf50mm", "rf35mm")
+               for f in os.listdir(os.path.join(ROOT, "sdirt_tpu_torch", "weights", l))}
+    assert on_disk == names
+
+
+def test_basis_student_roundtrip():
+    from sdirt_tpu.psfnet.arch import build_psfnet as jax_build
+
+    params = jax_build("mlpb@64x12", 5).init(jax.random.PRNGKey(1), jnp.zeros((1, 3)))
+    _roundtrip(_flat(params["params"], "params"), build_psfnet("mlpb@64x12", 5))
