@@ -67,7 +67,36 @@ Phases, each printing its elapsed seconds:
      through dfdp_net.main(), held against
      sdirt_tpu_torch/reference/stage_sample_rf35mm_jax_cpu.json (flat PSNR
      0.1 dB, depth 0.005, perceptual distance 5%);
- 13. the kernels line, then the card's name and power limit, then the
+ 13. K2 at ks 35: against its plain version at 1x256x384, 4x256x384 and a
+     ragged shape; its time, bound and plain time at the first two, and its
+     shared memory per block (3 blocks must fit an SM);
+ 14. F/1.8 serve path: ``--stage sample`` on a copy of
+     configs/dfdp_f18_farfield_256.yml that names the shipped depth net
+     Sdirt_f18_farfield (F18_PSFNet_mlp_ks35, ks 35), held against
+     sdirt_tpu_torch/reference/stage_sample_f18_jax_cpu.json (flat PSNR
+     0.1 dB, depth 0.005, perceptual distance 5%); one render call's time,
+     peak memory and torch.profiler breakdown;
+ 15. far-field A/B: ``python -m sdirt_tpu_torch.eval_farfield_ab`` through
+     its main(), arms f4 (ks 21) and f18 (F/1.8, ks 35) on 16 v2 scenes at
+     256x384, held against eval_farfield_ab_jax_cpu.json (acc1 columns
+     0.005, MAE columns 0.5%), 16 K2 launches per arm;
+ 16. deblur: ``--stage sample --train-mode deblur`` on a copy of
+     configs/dfdp_synthetic_train_128_deblur_cpu.yml that names the shipped
+     Sdirt_deblur_demo_cpu (depth and refined-depth metrics within 0.005 of
+     stage_sample_deblur_jax_cpu.json); ``--stage train --train-mode
+     deblur`` on configs/dfdp_synthetic_train_256_deblur.yml at its width
+     (256x384, bs 2, style v3), cut to 4 steps and 2 validation items (all
+     three losses finite, K2 once per step and validation item); three
+     128x192 deblur steps on the stored renders within 1e-3 of the JAX
+     float64 losses (train_step_deblur_jax_cpu.json); a torch.profiler
+     breakdown of one render + train step at 256x384, bs 2;
+ 17. stack and thin lens: ``--stage train`` on configs/dfdp_f4_2focus_256.yml
+     at 256x384, bs 4, with its second view's surrogate the shipped
+     F4_PSFNet_mlp@256 refocused to 5 m, cut as above (a 12-channel net, K2
+     twice per step and validation item, the real captures skipped with the
+     JAX log line); a torch.profiler breakdown of one render + train
+     step; one ThinLens batch on the card against the CPU;
+ 18. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -127,6 +156,27 @@ EARLIER_MS = {"K1 main": 0.1576, "K1 chief": 0.0201, "K2 serve": 0.4715}
 TRAIN_CONFIG = "configs/dfdp_synthetic_train_512_v5.yml"
 # the training phase keeps the config's widths and cuts its length only
 TRAIN_CUTS = {"epochs": 1, "synthetic_len": 16, "synthetic_val_len": 2}
+REF_DIR = os.path.join(ROOT, "sdirt_tpu_torch", "reference")
+KS35 = 35
+# the F/1.8 ks-35 serve path; its config names no depth net, so the check
+# runs a copy that names the shipped one, as the JAX CPU reference does
+F18_CONFIG = "configs/dfdp_f18_farfield_256.yml"
+F18_NET = "./ckpt/rf50mm/Sdirt_f18_farfield"
+AB_MAE_RTOL = 0.005
+DEBLUR_SAMPLE_CONFIG = "configs/dfdp_synthetic_train_128_deblur_cpu.yml"
+DEBLUR_NET = "./ckpt/rf50mm/Sdirt_deblur_demo_cpu"
+DEBLUR_TRAIN_CONFIG = "configs/dfdp_synthetic_train_256_deblur.yml"
+# the 2-focus stack: its second view's 5 m surrogate is not in the repository,
+# so the shipped 256-wide F/4 net stands in for it, refocused to 5 m
+STACK_CONFIG = "configs/dfdp_f4_2focus_256.yml"
+STACK_VIEW2 = {"psfnet_path": "./ckpt/rf50mm/F4_PSFNet_mlp@256",
+               "psfnet_model": "mlp@256"}
+# the new training paths keep their configs' widths and cut their length:
+# 4 steps (synthetic_len = 4 bs) and 2 validation items
+NEW_TRAIN_CUTS = {"epochs": 1, "synthetic_val_len": 2}
+THIN_LENS = dict(foc_len=50.0, fnum=1.8, kernel_size=21, sensor_size=[24.0, 36.0])
+# the same f32 arithmetic on both devices, the taps summed in the same order
+THIN_TOL = 1e-5
 
 T0 = time.perf_counter()
 
@@ -442,13 +492,17 @@ def mean_after_first(values):
     return float(np.mean(values[1:] if len(values) > 1 else values))
 
 
-def cut_config(path, out_dir, **overrides):
-    """The config at ``path`` with ``overrides``, written under out_dir."""
+def cut_config(path, out_dir, train=None, test=None, **overrides):
+    """The config at ``path`` with ``overrides``, and ``train`` / ``test``
+    merged into its sides, written under out_dir."""
     import yaml
 
     with open(path) as f:
         cfg = yaml.safe_load(f)
     cfg.update(overrides)
+    for side, extra in (("train", train), ("test", test)):
+        if extra:
+            cfg[side] = {**cfg[side], **extra}
     cut = os.path.join(out_dir, os.path.basename(path))
     with open(cut, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -863,6 +917,308 @@ def variant_times(dfdp_net, fused_conv, smi):
     return out
 
 
+def k2_ks35(fused_conv, kernels):
+    """Phase 13: K2 at ks 35 against its plain version at the F/1.8 serve
+    shape, the A/B's training-batch shape and a ragged one; its time, bound
+    and shared memory per block at 1 x 256 x 384 and 4 x 256 x 384."""
+    smem = kernels.library("fused_dp_conv").fused_dp_conv_smem_bytes(3, KS35)
+    print(f"K2 shared memory per block, C 3, ks {KS35}: {smem} B "
+          f"({smem / 1024:.1f} KB; 3 blocks take {3 * smem / 1024:.1f} of 228 KB)")
+    if smem != fused_conv.smem_bytes(3, KS35) or 3 * smem > 228 * 1024:
+        raise RuntimeError("K2's tile at ks 35 does not fit 3 blocks per SM")
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    out = {"smem_bytes": smem, "max_abs_err": 0.0}
+    for shape in ((1, 256, 384, 3), (4, 256, 384, 3), (1, 250, 379, 3)):
+        img, psf = conv_inputs(gen, *shape, KS35)
+        got = fused_conv.fused_dp_conv_tapmajor(img, psf, KS35)
+        ref = fused_conv.fused_dp_conv_tapmajor_ref(img, psf, KS35)
+        diff = max_diff(got, ref)
+        out["max_abs_err"] = max(out["max_abs_err"], diff)
+        print(f"K2 vs plain {shape} ks {KS35}: max |diff| {diff:.3e}")
+        if not diff <= KERNEL_TOL:
+            raise RuntimeError(f"K2 disagrees with its plain version at {shape}, ks 35")
+        del got, ref
+        if shape[1:] == (256, 384, 3):
+            ms = cuda_time_ms(lambda: fused_conv.fused_dp_conv_tapmajor(img, psf, KS35), 50)
+            plain = cuda_time_ms(
+                lambda: fused_conv.fused_dp_conv_tapmajor_ref(img, psf, KS35), 2, 1)
+            bound, by = k2_bound_ms(*shape, KS35)
+            print(f"K2 at {shape}, ks {KS35}: {ms:.4f} ms per launch (bound {bound:.4f} ms "
+                  f"by {by}, {bound / ms:.1%} of it); plain {plain:.3f} ms")
+            out[f"{shape[0]}x256x384"] = {"ms": ms, "plain_ms": plain,
+                                          "bound_ms": bound, "bound_by": by}
+        del img, psf
+    torch.cuda.empty_cache()
+    return out
+
+
+def render_call_ms(dfdp_net, cfg_path, smi, what):
+    """Time (CUDA events, after warm-up) and peak memory of one render call
+    of the config's test lens on its first flat sample scene."""
+    args = dfdp_net.load_config(cfg_path)
+    _, lens = dfdp_net.get_lens(args, device="cuda")
+    _, f20, depth = dfdp_net.get_flat_sample_set(args)[0]
+    img = torch.from_numpy(f20[None, :3]).cuda()
+    dist = torch.from_numpy(-depth[None] * 1e3).cuda()
+    call = lambda: lens.render(img, dist, None)  # noqa: E731
+    ms = cuda_time_ms(call, 5)
+    print_profile(f"render call {what}", *device_profile(call, 3), 3, ms, top=6)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    print(f"render call {what} at {img.shape[-2]}x{img.shape[-1]}, ks {lens.kernel_size}: "
+          f"{ms:.3f} ms, peak memory {peak:.3f} GiB above the held ({smi})")
+    return {"ms": ms, "peak_gib": peak}
+
+
+def serve_f18(dfdp_net, fused_conv, smi):
+    """Phase 14: the F/1.8 ks-35 serve path through dfdp_net.main() on the
+    copy of its config that names the shipped depth net, held against the
+    JAX package's CPU run."""
+    with open(os.path.join(REF_DIR, "stage_sample_f18_jax_cpu.json")) as f:
+        ref = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, _ = cut_config(F18_CONFIG, tmp, train={"dfdpnet_pretrained": F18_NET})
+        fused_conv.launches = 0
+        result = dfdp_net.main(["--stage", "sample", "--config", cfg_path, "--device",
+                                "cuda", "--out", os.path.join(tmp, "out")])
+        launches = fused_conv.launches
+        print(f"K2 launches on the F/1.8 serve path: {launches}")
+        if launches <= 0:
+            raise RuntimeError("the F/1.8 serve path did not launch K2")
+        check_serve_path("f18", result, ref)
+        render = render_call_ms(dfdp_net, cfg_path, smi, "F/1.8 fused")
+    return {"launches": launches, "render": render}
+
+
+def farfield_ab(fused_conv):
+    """Phase 15: python -m sdirt_tpu_torch.eval_farfield_ab, both arms on 16
+    v2 scenes at 256x384, held against the JAX script's CPU table."""
+    from sdirt_tpu_torch import eval_farfield_ab
+
+    with open(os.path.join(REF_DIR, "eval_farfield_ab_jax_cpu.json")) as f:
+        ref = json.load(f)["full"]
+    argv = ["--device", "cuda", *ref["argv"]]
+    fused_conv.launches = 0
+    rows = eval_farfield_ab.main(argv)
+    launches = fused_conv.launches
+    failed = []
+    for r in rows:
+        want = ref["arms"][r["name"]]
+        for k in ("acc1", "far_acc1", "near_acc1", "mae", "far_mae"):
+            d = r[k] - want[k]
+            tol = DEPTH_TOL if "acc" in k else AB_MAE_RTOL * want[k]
+            print(f"A/B {r['name']} {k}: {r[k]:.6f} (JAX CPU {want[k]}, diff {d:+.2e}, "
+                  f"tolerance {tol:.2e})")
+            if not (np.isfinite(r[k]) and abs(d) <= tol):
+                failed.append(f"{r['name']} {k}")
+        print(f"A/B {r['name']} (ks {r['ks']}): K2 launches {r['k2_launches']}, render "
+              f"{mean_after_first(r['render_ms']):.3f} ms per scene (mean after the first)")
+        if r["k2_launches"] != ref["val_len"]:
+            failed.append(f"{r['name']}: {r['k2_launches']} K2 launches")
+    if failed:
+        raise RuntimeError(f"far-field A/B off the JAX reference: {failed}")
+    return {"launches": launches,
+            "arms": {r["name"]: {**{k: r[k] for k in (*eval_farfield_ab.COLUMNS,
+                                                     "k2_launches", "ks")},
+                                 "render_ms": mean_after_first(r["render_ms"])}
+                     for r in rows}}
+
+
+def profile_train_step(dfdp_net, path, bs, train_mode="dfdp", **sides):
+    """A torch.profiler breakdown of one render + train step of the config
+    at ``path`` (its widths, a fresh net), as train() runs it, after a
+    warm-up step: the device's busy time and idle share per step."""
+    from sdirt_tpu_torch.dfdp.datasets import SyntheticRGBD
+    from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = dfdp_net.load_config(cut_config(path, tmp, **sides)[0])
+    lens, _ = dfdp_net.get_lens(args, device="cuda")
+    ds = SyntheticRGBD(tuple(args["res"]), length=bs,
+                       style=args.get("synthetic_style", "v1"))
+    aif = np.stack([ds[i][0] for i in range(bs)])
+    gt = np.stack([ds[i][1] for i in range(bs)])
+    state = create_dfdp_state(dfdp_net.build_basenet(
+        device="cuda", train=True, train_mode=train_mode,
+        n_views=getattr(lens, "n_views", 1)), args["lr"], 10)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def step():
+        stack, depth, aif_dev = dfdp_net._render_batch(lens, aif, gt, gen, train=True)
+        dfdp_train_step(state, stack, depth, aif_dev if train_mode == "deblur" else None)
+
+    wall = cuda_time_ms(step, 3, 1)
+    rows, busy = device_profile(step, 3)
+    print_profile(f"{os.path.basename(path)} render + train step", rows, busy, 3, wall)
+    del state, lens
+    torch.cuda.empty_cache()
+    return {"step_ms": wall, "device_busy_ms": busy / 3 if rows else None,
+            "device_idle_share": 1 - busy / 3 / wall if rows else None}
+
+
+def train_cut(dfdp_net, fused_conv, path, tmp, bs, extra_argv=(), **sides):
+    """--stage train through dfdp_net.main() on the config at ``path``, cut
+    in length only (NEW_TRAIN_CUTS: 1 epoch of 4 steps, 2 validation
+    items); returns (its result, K2 launches, peak GiB, the log's text)."""
+    cfg_path, cfg = cut_config(path, tmp, **NEW_TRAIN_CUTS, synthetic_len=4 * bs,
+                               ckpt_out=os.path.join(tmp, "best"),
+                               train_state_dir=os.path.join(tmp, "state"), **sides)
+    if (cfg["bs"], tuple(cfg["res"])) != (bs, (256, 384)):
+        raise RuntimeError(f"{path} is not at 256x384, bs {bs}")
+    out = os.path.join(tmp, "results")
+    fused_conv.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = dfdp_net.main(["--stage", "train", "--config", cfg_path, "--device", "cuda",
+                         "--out", out, *extra_argv])
+    launches = fused_conv.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(out, "train.log")) as f:
+        log = f.read()
+    print(f"training {path} at 256x384, bs {bs}, style {cfg['synthetic_style']}, ks "
+          f"{cfg['ks']}; cut in length only: {NEW_TRAIN_CUTS}, {4 * bs} scenes")
+    for i, (s, terms) in enumerate(zip(res["steps"], res["loss_terms"])):
+        print(f"  step {i}: render {s['render_ms']:.3f} ms, train step "
+              f"{s['train_step_ms']:.3f} ms, losses {terms}")
+    if len(res["losses"]) != 4:
+        raise RuntimeError(f"{path}: {len(res['losses'])} steps trained, not 4")
+    return res, launches, peak, log
+
+
+def deblur_phase(dfdp_net, fused_conv, smi):
+    """Phase 16: --train-mode deblur: the sample stage on the copy of the
+    128x192 deblur config that names the shipped deblur net (held against
+    the JAX CPU run), training on the 256x384 deblur config, and three train
+    steps against the JAX package's float64 losses."""
+    from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
+
+    with open(os.path.join(REF_DIR, "stage_sample_deblur_jax_cpu.json")) as f:
+        ref = json.load(f)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path, _ = cut_config(DEBLUR_SAMPLE_CONFIG, tmp,
+                                 train={"dfdpnet_pretrained": DEBLUR_NET})
+        fused_conv.launches = 0
+        result = dfdp_net.main(["--stage", "sample", "--config", cfg_path, "--train-mode",
+                                "deblur", "--device", "cuda", "--out",
+                                os.path.join(tmp, "out")])
+        out["sample_launches"] = fused_conv.launches
+    for tag, m in result["depth"].items():
+        for k, v in ref["depth"][tag].items():
+            d = m[k] - v
+            print(f"deblur depth {tag} {k}: {m[k]:.6f} (JAX CPU {v:.6f}, diff {d:+.2e})")
+            if not (np.isfinite(m[k]) and abs(d) <= DEPTH_TOL):
+                raise RuntimeError(f"deblur depth {tag} {k} off the JAX reference")
+    print(f"deblur sample stage: K2 launches {out['sample_launches']} (flat renders); "
+          f"host seconds {result['seconds']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res, launches, peak, _ = train_cut(dfdp_net, fused_conv, DEBLUR_TRAIN_CONFIG, tmp,
+                                           2, ["--train-mode", "deblur"])
+    want = 4 + 2 * NEW_TRAIN_CUTS["synthetic_val_len"]
+    terms = res["loss_terms"]
+    print(f"K2 launches on deblur training: {launches} (4 steps + 2 validations x "
+          f"{NEW_TRAIN_CUTS['synthetic_val_len']} = {want}); validation "
+          f"{[{k: round(v, 4) for k, v in m.items()} for m in res['val']]}")
+    if launches != want:
+        raise RuntimeError("deblur training did not launch K2 once per step and item")
+    if any(set(t) != {"depth_est", "depth_fix", "aif", "total"} for t in terms):
+        raise RuntimeError(f"deblur training lost a loss term: {terms}")
+    render_ms = mean_after_first([s["render_ms"] for s in res["steps"]])
+    step_ms = mean_after_first([s["train_step_ms"] for s in res["steps"]])
+    print(f"deblur training per step (mean after the first): render {render_ms:.3f} ms, "
+          f"train step {step_ms:.3f} ms; max_memory_allocated {peak:.2f} GiB ({smi})")
+    out.update(train_launches=launches, render_ms=render_ms, train_step_ms=step_ms,
+               peak_gib=peak, losses=terms)
+
+    with open(os.path.join(REF_DIR, "train_step_deblur_jax_cpu.json")) as f:
+        sref = json.load(f)
+    with np.load(os.path.join(ROOT, sref["stacks"])) as z:
+        stacks, depths = z["stacks"], z["depths"]
+    with np.load(os.path.join(ROOT, sref["aif"])) as z:
+        aifs = z["aif"]
+    state = create_dfdp_state(dfdp_net.build_basenet(
+        os.path.join(ROOT, sref["weights"]), device="cuda", train=True,
+        train_mode="deblur"), sref["lr"], sref["total_steps"])
+    worst = 0.0
+    for k in range(sref["steps"]):
+        got = dfdp_train_step(state, torch.from_numpy(stacks[k].astype(np.float32) / 65535).cuda(),
+                              torch.from_numpy(depths[k].astype(np.float32)).cuda(),
+                              torch.from_numpy(aifs[k].astype(np.float32) / 255.0).cuda())
+        for name, v in sref["losses"][k].items():
+            gap = abs(float(got[name]) - v) / v
+            worst = max(worst, gap)
+            print(f"deblur train step {k} {name}: {float(got[name]):.6f} (JAX CPU float64 "
+                  f"{v:.6f}, relative gap {gap:.2e})")
+    print(f"deblur train steps on the stored stacks: worst relative gap {worst:.3e} "
+          f"(tolerance {sref['stored_stacks_rtol']})")
+    if not worst <= sref["stored_stacks_rtol"]:
+        raise RuntimeError("deblur train steps off the JAX reference")
+    out["reference_worst_rel_gap"] = worst
+    del state
+    torch.cuda.empty_cache()
+    out["profile"] = profile_train_step(dfdp_net, DEBLUR_TRAIN_CONFIG, 2, "deblur")
+    return out
+
+
+def stack_phase(dfdp_net, fused_conv, smi):
+    """Phase 17: --stage train on a 2-focus stack config (the second view the
+    shipped F4_PSFNet_mlp@256 refocused to 5 m), and one ThinLens batch on
+    the card against the CPU."""
+    from sdirt_tpu_torch.dfdp.datasets import SyntheticRGBD
+    from sdirt_tpu_torch.psfnet.thinlens import ThinLens
+
+    import yaml
+
+    with open(STACK_CONFIG) as f:
+        stack = yaml.safe_load(f)["train"]["stack"]
+    stack = [stack[0], {**stack[1], **STACK_VIEW2}]
+    with tempfile.TemporaryDirectory() as tmp:
+        res, launches, peak, log = train_cut(dfdp_net, fused_conv, STACK_CONFIG, tmp, 4,
+                                             train={"stack": stack}, test={"stack": stack})
+    net = res["state"].net
+    cin = net.dfdp_net.Feature_0.BasicConv_0.Conv_0.weight.shape[1]
+    want = 2 * (4 + 2 * NEW_TRAIN_CUTS["synthetic_val_len"])
+    skipped = dfdp_net.MULTI_FOCUS_SKIP in log
+    print(f"stack training: {net.n_views} views, feature tower input {cin} channels "
+          f"(net input {6 * net.n_views}); K2 launches {launches} (2 views x (4 steps + "
+          f"2 validations x {NEW_TRAIN_CUTS['synthetic_val_len']}) = {want}); real-capture "
+          f"eval skipped with the JAX log line: {skipped}")
+    if (net.n_views, cin) != (2, 6) or launches != want or not skipped:
+        raise RuntimeError("the stack's training path is not what the config asks")
+    render_ms = mean_after_first([s["render_ms"] for s in res["steps"]])
+    step_ms = mean_after_first([s["train_step_ms"] for s in res["steps"]])
+    print(f"stack training per step (mean after the first): render {render_ms:.3f} ms, "
+          f"train step {step_ms:.3f} ms; max_memory_allocated {peak:.2f} GiB ({smi})")
+    losses = res["loss_terms"]
+    del net, res
+    torch.cuda.empty_cache()
+    profile = profile_train_step(dfdp_net, STACK_CONFIG, 4, train={"stack": stack},
+                                 test={"stack": stack})
+
+    ds = SyntheticRGBD((256, 384), length=2, seed=999, train=False, style="v2")
+    aif = np.stack([ds[i][0] for i in range(2)])
+    depth = -np.stack([ds[i][1] for i in range(2)]) * 1e3
+    foc = np.array([-1000.0, -1000.0], np.float32)
+    renders = {}
+    for dev in ("cuda", "cpu"):
+        thin = ThinLens(**THIN_LENS, sensor_res=(256, 384), device=dev)
+        renders[dev] = thin.render(aif, depth, foc).cpu()
+    thin = ThinLens(**THIN_LENS, sensor_res=(256, 384), device="cuda")
+    thin_ms = cuda_time_ms(lambda: thin.render(aif, depth, foc), 3)
+    diff = float((renders["cuda"] - renders["cpu"]).abs().max())
+    print(f"ThinLens {THIN_LENS} render 2x3x256x384 on the card: {thin_ms:.3f} ms; "
+          f"card vs CPU max |diff| {diff:.3e} (tolerance {THIN_TOL})")
+    if not diff <= THIN_TOL:
+        raise RuntimeError("the thin-lens render on the card disagrees with the CPU")
+    return {"launches": launches, "render_ms": render_ms, "train_step_ms": step_ms,
+            "peak_gib": peak, "losses": losses, "profile": profile,
+            "thinlens_ms": thin_ms, "thinlens_card_vs_cpu": diff}
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -1196,11 +1552,42 @@ def main():
     check_serve_path("rf35mm", result35, ref35)
     phase("12 rf35mm serve path", t)
 
-    # -- 13. result ----------------------------------------------------------
+    # -- 13. K2 at ks 35 -------------------------------------------------------
+    t = time.perf_counter()
+    k2_35 = k2_ks35(fused_conv, kernels)
+    phase("13 K2 at ks 35", t)
+
+    # -- 14. F/1.8 serve path --------------------------------------------------
+    t = time.perf_counter()
+    f18 = serve_f18(dfdp_net, fused_conv, smi)
+    phase("14 F/1.8 serve path", t)
+
+    # -- 15. far-field A/B -----------------------------------------------------
+    t = time.perf_counter()
+    ab = farfield_ab(fused_conv)
+    phase("15 far-field A/B", t)
+
+    # -- 16. deblur ------------------------------------------------------------
+    t = time.perf_counter()
+    deblur = deblur_phase(dfdp_net, fused_conv, smi)
+    phase("16 deblur", t)
+
+    # -- 17. multi-focus stack and thin lens -------------------------------------
+    t = time.perf_counter()
+    stack = stack_phase(dfdp_net, fused_conv, smi)
+    phase("17 stack and thin lens", t)
+
+    # -- 18. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, train_stats["k2"]["max_abs_err"],
-               variant_stats["k2_int8"]["max_abs_err"], *diffs.values()])
+               variant_stats["k2_int8"]["max_abs_err"], k2_35["max_abs_err"],
+               *diffs.values()])
+    k2_paths = {"serve": launches, "train": train_stats["k2_launches"],
+                "fused_int8": k2_int8, "serve_rf35mm": launches35,
+                "serve_f18": f18["launches"], "farfield_ab": ab["launches"],
+                "deblur": deblur["sample_launches"] + deblur["train_launches"],
+                "stack": stack["launches"]}
     k1_err = max(v[0] for v in k1_check.values())
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
@@ -1215,18 +1602,18 @@ def main():
         "name": "fused_dp_conv_tapmajor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_dp_conv.cu",
         "replaces": "sdirt_tpu/render/fused_conv_pallas.py:81",
-        "launches": launches + train_stats["k2_launches"] + k2_int8 + launches35,
-        "launches_by_path": {"serve": launches, "train": train_stats["k2_launches"],
-                             "fused_int8": k2_int8, "serve_rf35mm": launches35},
+        "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
         "max_abs_err": err, "max_abs_diff": err,
         "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "train_shape": train_stats["k2"], "fused_int8_psf": variant_stats["k2_int8"]}],
+        "train_shape": train_stats["k2"], "fused_int8_psf": variant_stats["k2_int8"],
+        "ks35": k2_35}],
         "train": {k: v for k, v in train_stats.items() if k not in ("k2",)},
         "train_step_reference": train_ref,
         "variants": {"gate": variant_rows, "render": variant_stats["render"],
                      "parts_ms": variant_stats["parts_ms"],
-                     "int8_trunk_card_vs_cpu": variant_stats["trunk_card_vs_cpu"]}}))
+                     "int8_trunk_card_vs_cpu": variant_stats["trunk_card_vs_cpu"]},
+        "serve_f18": f18, "farfield_ab": ab, "deblur": deblur, "stack": stack}))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,13 @@ so the trees are restored here, on the CPU, with the JAX package's own
 loaders and written as flat float32 trees (``"params/Dense_0/kernel"``,
 ``"batch_stats/.../mean"``, ...), ``ckpt/<lens>/<name>`` ->
 ``sdirt_tpu_torch/weights/<lens>/<name>.npz``, for each of EXPORTS: the
-surrogates and depth nets of configs/dfdp_by_sdirt_{rf50mm,rf35mm}.yml and
-both lenses' promoted basis students (ckpt/*/PROMOTED_SURROGATE.json).
+surrogates and depth nets of configs/dfdp_by_sdirt_{rf50mm,rf35mm}.yml,
+both lenses' promoted basis students (ckpt/*/PROMOTED_SURROGATE.json), the
+far-field A/B's F/1.8 ks-35 surrogate and its two depth nets
+(configs/dfdp_f{4,18}_farfield_256.yml), the 256-wide F/4 surrogate (the
+second view of a multi-focus stack) and the deblur demo net with its
+Mydeblur head. Only the inference leaves are written: parameters and
+BatchNorm statistics.
 
 Usage:
   JAX_PLATFORMS=cpu python scripts/export_torch_weights.py
@@ -38,7 +43,12 @@ REF_JSON = os.path.join(REF_DIR, "stage_sample_jax_cpu.json")
 DEFAULT_CONFIG = "configs/dfdp_by_sdirt_rf50mm.yml"
 EXPORTS = (("rf50mm", "F4_PSFNet_mlp"), ("rf50mm", "Sdirt_best_acc1"),
            ("rf50mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "F4_PSFNet_mlp"),
-           ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"))
+           ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"),
+           ("rf50mm", "F18_PSFNet_mlp_ks35"), ("rf50mm", "F4_PSFNet_mlp@256"),
+           ("rf50mm", "Sdirt_f4_farfield"), ("rf50mm", "Sdirt_f18_farfield"),
+           ("rf50mm", "Sdirt_deblur_demo_cpu"))
+# depth nets with the Mydeblur head (Basenet(train_mode="deblur"))
+DEBLUR_NETS = ("Sdirt_deblur_demo_cpu",)
 
 
 def _flat(tree, prefix):
@@ -48,23 +58,32 @@ def _flat(tree, prefix):
     return {f"{prefix}/{k}": np.asarray(v, np.float32) for k, v in flat.items()}
 
 
+def psfnet_arch(name: str):
+    """(model name, ks) of a surrogate checkpoint named
+    ``<prefix>_PSFNet_<model>[_ks<ks>]`` (ks 21 when the name has none)."""
+    model = name.split("PSFNet_")[1]
+    model, _, ks = model.partition("_ks")
+    return model, int(ks or 21)
+
+
 def psfnet_tree(lens="rf50mm", name="F4_PSFNet_mlp"):
-    """A PSF surrogate ``ckpt/<lens>/<name>`` (architecture from the name's
-    ``PSFNet_<model>`` suffix), restored by PSFNetLens.load_net."""
+    """A PSF surrogate ``ckpt/<lens>/<name>`` (architecture and ks from the
+    name, psfnet_arch), restored by PSFNetLens.load_net."""
     from sdirt_tpu.psfnet.surrogate import PSFNetLens
 
+    model, ks = psfnet_arch(name)
     surrogate = PSFNetLens(os.path.join(ROOT, f"lenses/{lens}/lens_web.json"),
-                           model_name=name.split("PSFNet_")[1],
-                           sensor_res=(512, 768), kernel_size=21)
+                           model_name=model, sensor_res=(512, 768),
+                           kernel_size=ks)
     surrogate.load_net(os.path.join(ROOT, "ckpt", lens, name))
     return _flat(surrogate.params["params"], "params")
 
 
-def depthnet_tree(lens="rf50mm"):
-    """The shipped DDDNet of a lens, restored by restore_inference_ckpt against an
-    abstract template of the net at 128x192 (the smallest input the
-    two-scale SPP of the feature tower accepts; parameter shapes do not
-    depend on it)."""
+def depthnet_tree(lens="rf50mm", name="Sdirt_best_acc1"):
+    """A shipped DDDNet ``ckpt/<lens>/<name>`` (with the Mydeblur head for
+    DEBLUR_NETS), restored by restore_inference_ckpt against an abstract
+    template of the net at 128x192 (the smallest input the two-scale SPP of
+    the feature tower accepts; parameter shapes do not depend on it)."""
     import jax
     import jax.numpy as jnp
 
@@ -72,24 +91,26 @@ def depthnet_tree(lens="rf50mm"):
     from sdirt_tpu.utils.checkpoint import restore_inference_ckpt
 
     dev = jax.sharding.SingleDeviceSharding(jax.devices()[0])
-    shapes = jax.eval_shape(lambda: Basenet().init(
+    mode = "deblur" if name in DEBLUR_NETS else "dfdp"
+    shapes = jax.eval_shape(lambda: Basenet(train_mode=mode).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 6, 128, 192)), train=False))
     abstract = jax.tree.map(
         lambda s: jax.ShapeDtypeStruct(s.shape, s.dtype, sharding=dev), shapes)
     params, stats = restore_inference_ckpt(os.path.join(ROOT, "ckpt", lens,
-                                                        "Sdirt_best_acc1"),
+                                                        name),
                                            abstract["params"],
                                            abstract["batch_stats"])
     return {**_flat(params, "params"), **_flat(stats, "batch_stats")}
 
 
 def tree(lens, name):
-    return depthnet_tree(lens) if name.startswith("Sdirt") else psfnet_tree(lens, name)
+    return (depthnet_tree(lens, name) if name.startswith("Sdirt")
+            else psfnet_tree(lens, name))
 
 
-def export(weights_dir=WEIGHTS_DIR):
+def export(weights_dir=WEIGHTS_DIR, exports=EXPORTS):
     paths = {}
-    for lens, name in EXPORTS:
+    for lens, name in exports:
         t = tree(lens, name)
         os.makedirs(os.path.join(weights_dir, lens), exist_ok=True)
         path = os.path.join(weights_dir, lens, f"{name}.npz")

@@ -4,9 +4,14 @@ test sets (PyTorch counterpart of sdirt_tpu/dfdp/factory.py).
 The configs name orbax checkpoints (``./ckpt/<lens>/<name>``); the port reads
 their exported copies, ``sdirt_tpu_torch/weights/<lens>/<name>.npz``
 (scripts/export_torch_weights.py), or its own export ``<name>.npz`` where
-one lies beside the name. Thin lenses, focal stacks and re-stopped
-apertures are not ported yet, nor the NYU, FlyingThings3D and Middlebury
-loaders (ROADMAP.md §1 item 9): the training mix is ``Synthetic`` only.
+one lies beside the name. A config's lens is a surrogate lens, optionally
+re-stopped (``fnum``) and refocused (``focus_mm``), a thin lens
+(``lens: thinlens``) or a multi-focus stack (``stack``: per-view
+sub-configs). The NYU, FlyingThings3D and Middlebury loaders are not ported
+yet (ROADMAP.md §1 item 5): the training mix is ``Synthetic`` only.
+
+Unlike the JAX factory, which builds an untrained surrogate when the named
+checkpoint is missing, the port raises (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -40,18 +45,37 @@ def ported_weights(ckpt_path: str) -> str:
 
 
 def get_lens(args, device="cuda"):
-    """(train lens, test lens) of the config, surrogates loaded."""
+    """(train lens, test lens) of the config, surrogates loaded. Per side:
+    ``lens: thinlens`` builds a ThinLens (``foc_len``, ``fnum``,
+    ``sensor_size``); a ``stack`` list builds a FocalStackLens of its
+    sub-configs, each merged over the side's other keys, in order;
+    otherwise a PSFNetLens re-stopped to ``fnum`` first, then refocused to
+    ``focus_mm`` with its focus prior moved there (the order of the fit)."""
     from ..psfnet.surrogate import PSFNetLens
 
     def build(cfg):
-        unported = {"stack", "fnum", "focus_mm"} & set(cfg)
-        if cfg["lens"] == "thinlens" or unported:
-            raise NotImplementedError(
-                f"lens config {sorted(unported) or 'thinlens'} is not ported yet")
+        if cfg["lens"] == "thinlens":
+            from ..psfnet.thinlens import ThinLens
+
+            return ThinLens(foc_len=cfg["foc_len"], fnum=cfg["fnum"],
+                            kernel_size=args["ks"],
+                            sensor_size=[float(i) for i in cfg["sensor_size"]],
+                            sensor_res=args["res"], device=device)
+        if cfg.get("stack"):
+            from ..psfnet.stack import FocalStackLens
+
+            base = {k: v for k, v in cfg.items() if k != "stack"}
+            return FocalStackLens([build({**base, **sub})
+                                   for sub in cfg["stack"]])
         lens = PSFNetLens(filename=cfg["lens"], sensor_res=args["res"],
                           kernel_size=args["ks"],
                           model_name=cfg.get("psfnet_model", "mlp"),
                           device=device)
+        if cfg.get("fnum"):
+            lens.set_aperture(fnum=float(cfg["fnum"]))
+        if cfg.get("focus_mm"):
+            lens.refocus(float(cfg["focus_mm"]) + lens.d_sensor)
+            lens.set_focus_prior(float(cfg["focus_mm"]))
         if cfg.get("psfnet_path"):
             lens.load_net(ported_weights(cfg["psfnet_path"]))
         return lens
@@ -70,7 +94,7 @@ def get_flat_sample_set(args):
     return CanonFlatSet(args["real_flat_sample"], resize=args["res"])
 
 
-NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 9: it "
+NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 5: it "
                    "waits for such data in the repository); use 'Synthetic'")
 
 

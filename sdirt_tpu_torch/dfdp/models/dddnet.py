@@ -4,7 +4,10 @@
 Siamese dilated-conv feature tower (stride 4, two-scale SPP) -> signed-shift
 DP cost volume (maxdisp 20, both directions) -> 3-D conv matching U-net ->
 trilinear x4 upsample + softmin regression over d in [-10, 10). The network
-regresses LOG depth. The deblur head (Mydeblur) comes with a later slice.
+regresses LOG depth. V focus views enter the feature tower as one
+3V-channel image per DP side. Mydeblur is the deblur head: a three-level
+patch pyramid of encoders and decoders, fused by channel attention, that
+refines the log depth and restores the all-in-focus image.
 """
 
 from __future__ import annotations
@@ -13,15 +16,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (BasicConv, Conv2x, ConvBN, resize_bilinear)
+from .layers import (BasicConv, CAMModule, Conv2x, ConvBlock, ConvBN,
+                     resize_bilinear)
 
 
 class Feature(nn.Module):
-    """Siamese feature tower, stride 4, 32-channel output."""
+    """Siamese feature tower, stride 4, 32-channel output; ``cin`` input
+    channels (3 per focus view)."""
 
-    def __init__(self):
+    def __init__(self, cin: int = 3):
         super().__init__()
-        self.BasicConv_0 = BasicConv(3, 32, 3, 1, 1)
+        self.BasicConv_0 = BasicConv(cin, 32, 3, 1, 1)
         self.BasicConv_1 = BasicConv(32, 64, 3, 1, 1)
         self.BasicConv_2 = BasicConv(64, 64, 3, 2, 1)
         self.BasicConv_3 = BasicConv(64, 128, 3, 1, 4, dilation=4)
@@ -109,13 +114,13 @@ def softmin_disparity(x, maxdisp: int = 20):
 
 
 class YRStereonet3D(nn.Module):
-    """The DfDP depth network: left/right [B, 3, H, W] -> [B, 1, H, W]
-    log depth."""
+    """The DfDP depth network: left/right [B, 3V, H, W] (the left, and the
+    right, channels of V focus views) -> [B, 1, H, W] log depth."""
 
-    def __init__(self, maxdisp: int = 20):
+    def __init__(self, maxdisp: int = 20, n_views: int = 1):
         super().__init__()
         self.maxdisp = maxdisp
-        self.Feature_0 = Feature()
+        self.Feature_0 = Feature(3 * n_views)
         self.Matching_0 = Matching()
 
     def forward(self, left, right):
@@ -123,3 +128,113 @@ class YRStereonet3D(nn.Module):
         yr = self.Feature_0(right)
         cost = self.Matching_0(dp_cost_volume(xl, yr, self.maxdisp))
         return softmin_disparity(cost, self.maxdisp)
+
+
+def _conv3(cin: int, cout: int, stride: int = 1):
+    return nn.Conv2d(cin, cout, 3, stride, padding=1)
+
+
+class _Residuals(nn.Module):
+    """Residual pairs x + conv_a(relu(conv_b(x))), named as Flax names them:
+    in ``Conv(a)(relu(Conv(b)(x)))`` the outer conv is built first, so it
+    takes the lower index."""
+
+    def _pair(self, x, first: int):
+        outer = getattr(self, f"Conv_{first}")
+        inner = getattr(self, f"Conv_{first + 1}")
+        return outer(torch.relu(inner(x))) + x
+
+
+class Encoder(_Residuals):
+    """Deblur encoder: three conv stages (stride 1, 2, 2) with residual
+    pairs, ``out_features`` channels at H/4 (ceil)."""
+
+    def __init__(self, cin: int, out_features: int = 128):
+        super().__init__()
+        self.Conv_0 = _conv3(cin, 32)
+        for i in (1, 2, 3, 4):
+            setattr(self, f"Conv_{i}", _conv3(32, 32))
+        self.Conv_5 = _conv3(32, 64, 2)
+        for i in (6, 7, 8, 9):
+            setattr(self, f"Conv_{i}", _conv3(64, 64))
+        self.Conv_10 = _conv3(64, 128, 2)
+        for i in (11, 12, 14):
+            setattr(self, f"Conv_{i}", _conv3(128, 128))
+        self.Conv_13 = _conv3(128, out_features)
+
+    def forward(self, x):
+        x = self.Conv_0(x)
+        x = self._pair(self._pair(x, 1), 3)
+        x = self.Conv_5(x)
+        x = self._pair(self._pair(x, 6), 8)
+        x = self.Conv_10(x)
+        return self._pair(self._pair(x, 11), 13)
+
+
+class Decoder(_Residuals):
+    """Deblur decoder: residual pairs at 128, 64 and 32 channels with two x2
+    transposed convolutions (k4, s2, with bias; Flax's SAME padding is
+    torch's padding 1) between them, then a 3x3 conv to ``out_features``."""
+
+    def __init__(self, out_features: int = 3):
+        super().__init__()
+        for i in (0, 1, 2, 3):
+            setattr(self, f"Conv_{i}", _conv3(128, 128))
+        self.ConvTranspose_0 = nn.ConvTranspose2d(128, 64, 4, 2, padding=1)
+        for i in (4, 5, 6, 7):
+            setattr(self, f"Conv_{i}", _conv3(64, 64))
+        self.ConvTranspose_1 = nn.ConvTranspose2d(64, 32, 4, 2, padding=1)
+        for i in (8, 9, 10, 11):
+            setattr(self, f"Conv_{i}", _conv3(32, 32))
+        self.Conv_12 = _conv3(32, out_features)
+
+    def forward(self, x):
+        x = self.ConvTranspose_0(self._pair(self._pair(x, 0), 2))
+        x = self.ConvTranspose_1(self._pair(self._pair(x, 4), 6))
+        return self.Conv_12(self._pair(self._pair(x, 8), 10))
+
+
+class Mydeblur(nn.Module):
+    """Multi-patch deblur and depth-refine head: the image (left, right and
+    the estimated log depth, 7 channels) in halves and quarters through one
+    encoder per pyramid level, decoded coarse to fine, fused with a channel
+    attention over a stride-4 view of (left - right, depth). H and W must
+    be multiples of 8 (each quarter patch lands on its encoder's H/4 grid).
+    Returns (refined log depth [B, 1, H, W], all-in-focus image
+    [B, 3, H, W])."""
+
+    def __init__(self, feat: int = 128):
+        super().__init__()
+        self.Encoder_0 = Encoder(7, feat)     # level 1, the whole image
+        self.Encoder_1 = Encoder(7, feat)     # level 2, halves
+        self.Encoder_2 = Encoder(7, feat)     # level 3, quarters
+        self.Decoder_0 = Decoder(7)           # level 3
+        self.Decoder_1 = Decoder(7)           # level 2
+        self.Decoder_2 = Decoder(3)           # the all-in-focus image
+        self.Decoder_3 = Decoder(1)           # the refined depth
+        self.ConvBlock_0 = ConvBlock(4, feat, 8, 4, 2)
+        self.CAMModule_0 = CAMModule()
+
+    def forward(self, left, right, disp):
+        img = torch.cat([left, right, disp], dim=1)           # [B, 7, H, W]
+        h, w = img.shape[2:]
+        lv2 = [img[:, :, :h // 2], img[:, :, h // 2:]]
+        lv3 = [lv2[0][..., :w // 2], lv2[0][..., w // 2:],
+               lv2[1][..., :w // 2], lv2[1][..., w // 2:]]
+
+        f3 = [self.Encoder_2(p) for p in lv3]
+        f3_top = torch.cat([f3[0], f3[1]], dim=3)
+        f3_bot = torch.cat([f3[2], f3[3]], dim=3)
+        f3_merge = torch.cat([f3_top, f3_bot], dim=2)
+        r3_top = self.Decoder_0(f3_top)
+        r3_bot = self.Decoder_0(f3_bot)
+
+        f2 = [self.Encoder_1(lv2[0] + r3_top), self.Encoder_1(lv2[1] + r3_bot)]
+        f2_merge = torch.cat(f2, dim=2) + f3_merge
+        r2_merge = self.Decoder_1(f2_merge)
+
+        f1_merge = self.Encoder_0(img + r2_merge) + f2_merge
+        feat = self.CAMModule_0(self.ConvBlock_0(
+            torch.cat([left - right, disp], dim=1)))
+        fused = f1_merge + feat
+        return self.Decoder_3(fused), self.Decoder_2(fused)

@@ -66,7 +66,8 @@ def resize_linear_align_corners(x, out_sizes: Sequence[int],
         if out == n:
             continue
         scale = (n - 1) / (out - 1) if out > 1 else 0.0
-        pos = torch.arange(out, device=x.device, dtype=torch.float32) * scale
+        pos = torch.arange(out, device=x.device,
+                           dtype=torch.promote_types(x.dtype, torch.float32)) * scale
         i0 = torch.floor(pos).long()
         i1 = torch.clamp(i0 + 1, max=n - 1)
         shape = [1] * x.dim()
@@ -145,3 +146,59 @@ class Conv2x(nn.Module):
         if x.shape != rem.shape:
             raise ValueError(f"Conv2x: {tuple(x.shape)} vs skip {tuple(rem.shape)}")
         return self.BasicConv_1(torch.cat([x, rem], dim=1))
+
+
+class ResBlock(nn.Module):
+    """Dilated residual block: (conv, BN, leaky ReLU 0.2) twice, the second
+    added to the input before its activation."""
+
+    def __init__(self, features: int, dilation: int = 1):
+        super().__init__()
+        pad = dilation
+        self.Conv_0 = nn.Conv2d(features, features, 3, padding=pad,
+                                dilation=dilation, bias=False)
+        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_1 = nn.Conv2d(features, features, 3, padding=pad,
+                                dilation=dilation, bias=False)
+        self.BatchNorm_1 = BatchNorm(features)
+
+    def forward(self, x):
+        out = F.leaky_relu(self.BatchNorm_0(self.Conv_0(x)), 0.2)
+        out = self.BatchNorm_1(self.Conv_1(out))
+        return F.leaky_relu(out + x, 0.2)
+
+
+class CAMModule(nn.Module):
+    """Channel attention: a softmax over each row of max(energy) - energy,
+    with energy the [B, C, C] Gram matrix of the channels summed over the
+    H*W pixels, mixes the channels; the result is scaled by the learnt
+    ``gamma`` (0 at init) and added to the input. Computed in f32 (or the
+    input's wider type) whatever the input's type: the sums run over the
+    H*W pixels."""
+
+    def __init__(self):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        v = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(b, c, h * w)
+        energy = torch.bmm(v, v.transpose(1, 2))                  # [B, C, C]
+        energy_new = energy.amax(-1, keepdim=True) - energy
+        attention = torch.softmax(energy_new, dim=-1)
+        out = torch.bmm(attention, v).reshape(b, c, h, w).to(x.dtype)
+        return self.gamma * out + x
+
+
+class ConvBlock(nn.Module):
+    """Conv (with bias) + sigmoid, the JAX ConvBlock with the activation
+    the deblur head uses."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(cin, features, kernel_size, stride,
+                                padding=padding)
+
+    def forward(self, x):
+        return torch.sigmoid(self.Conv_0(x))

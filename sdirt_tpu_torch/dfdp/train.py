@@ -1,5 +1,6 @@
 """DfDP train and inference steps (PyTorch counterpart of
-sdirt_tpu/dfdp/train.py, ``dfdp`` mode).
+sdirt_tpu/dfdp/train.py); the net's ``train_mode`` picks the loss and what
+inference returns.
 
 The optimiser reproduces the JAX package's optax chain
 ``clip_by_global_norm(1.0)`` -> ``adamw(cosine(lr, T_max=total_steps))``:
@@ -50,24 +51,29 @@ def clip_by_global_norm_(grads, max_norm: float = MAX_GRAD_NORM):
     return norm
 
 
-def dfdp_grads(net, stack_rgb, gt_depth):
+def dfdp_grads(net, stack_rgb, gt_depth, gt_aif=None):
     """Forward in train mode (one BN statistics update) and backward of the
-    masked SmoothL1 log-depth loss. Returns the loss dict (detached); the
-    gradients are left in the parameters' ``.grad``."""
+    net's loss: the masked SmoothL1 log-depth loss, and in deblur mode its
+    three-term loss against the all-in-focus ``gt_aif`` [B, 3, H, W].
+    Returns the loss dict (detached); the gradients are left in the
+    parameters' ``.grad``."""
     gt_log, mask = linear_depth(gt_depth)
     for p in net.parameters():
         p.grad = None
-    losses = compute_loss(net(stack_rgb), gt_log, mask)
+    losses = compute_loss(net(stack_rgb), gt_log, mask, gt_aif,
+                          net.train_mode)
     losses["total"].backward()
     return {k: v.detach() for k, v in losses.items()}
 
 
-def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth) -> dict:
+def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth,
+                    gt_aif=None) -> dict:
     """One optimisation step on a rendered DP batch.
 
-    stack_rgb: [B, 6, H, W]; gt_depth: [B, 1, H, W] metres. Returns the
+    stack_rgb: [B, 6V, H, W]; gt_depth: [B, 1, H, W] metres; gt_aif:
+    [B, 3, H, W], the all-in-focus image (deblur mode only). Returns the
     loss dict of 0-d tensors (not synchronised)."""
-    losses = dfdp_grads(state.net, stack_rgb, gt_depth)
+    losses = dfdp_grads(state.net, stack_rgb, gt_depth, gt_aif)
     clip_by_global_norm_([p.grad for p in state.net.parameters()])
     state.opt.step()
     state.sched.step()
@@ -78,10 +84,17 @@ def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth) -> dict:
 @torch.no_grad()
 def dfdp_infer(net, stack_rgb):
     """Depth in metres: exp of the net's log depth (BatchNorm on its running
-    statistics, whatever mode the net is in). stack_rgb: [B, 6, H, W]."""
+    statistics, whatever mode the net is in). stack_rgb: [B, 6V, H, W].
+    In deblur mode returns (depth, refined depth in metres, all-in-focus
+    image [B, 3, H, W])."""
     was_training = net.training
     net.eval()
     try:
-        return torch.exp(net(stack_rgb)["pred_depth_est"].float())
+        out = net(stack_rgb)
+        depth = torch.exp(out["pred_depth_est"].float())
+        if net.train_mode == "deblur":
+            return (depth, torch.exp(out["pred_depth_fix"].float()),
+                    out["pred_aif"])
+        return depth
     finally:
         net.train(was_training)

@@ -2,7 +2,8 @@
 ``apps/dfdp_net.py``).
 
   python -m sdirt_tpu_torch.dfdp_net --stage sample|full|train \\
-      --config configs/<name>.yml [--device cuda|cpu] [--out DIR]
+      --config configs/<name>.yml [--train-mode dfdp|deblur] \\
+      [--device cuda|cpu] [--out DIR]
 
   --stage sample  evaluate on the bundled real_sample_set: DP-simulation
                   fidelity (render the F/20 flat captures to F/4 through the
@@ -17,15 +18,23 @@
                   net to ``ckpt_out`` and the resumable train state to
                   ``train_state_dir``.
 
+--train-mode deblur adds the Mydeblur head: its refined depth and
+all-in-focus image are scored beside the depth (acc1..3 of the refined
+depth; PSNR and SSIM of the image where an all-in-focus truth exists) and
+trained with the three-term loss. The config's lens may be a re-stopped
+(``fnum``) or refocused (``focus_mm``) surrogate, a thin lens or a
+multi-focus stack of V views; the net then takes 6V channels, and the real
+captures (single-focus pairs) are not scored for V > 1.
+
 Every render takes the variant SDIRT_RENDER_VARIANT names (render/pipeline.py:
 scan, fused, fused_int8, basis, basis_int8), else the port's default
 ``fused`` (bf16 MLP -> the K2 CUDA kernel); the JAX package defaults to
 ``fused_int8``. Matrix products and convolutions run in full f32 (TF32 off).
 The evaluation stages write ``DPimages/res.csv`` (flat scores: PSNR, SSIM
 and the weight-free perceptual distance per view) and ``depth.csv`` under
-``--out``. Not ported yet (ROADMAP.md §1): ``--train-mode deblur`` (item 5),
-``--data-parallel`` (item 8), ``--save-images``, and the
-NYU/FlyingThings3D/Middlebury training sets (item 9).
+``--out``. Not ported yet (ROADMAP.md §1): ``--save-images`` (item 6),
+``--data-parallel`` (item 7), and the NYU/FlyingThings3D/Middlebury training
+sets (item 5).
 """
 
 from __future__ import annotations
@@ -91,21 +100,39 @@ def test_dp_images(lens, flat_set, variant: str | None = None, **render_kw):
     return records
 
 
+MULTI_FOCUS_SKIP = ("multi-focus stack net: real-capture eval skipped "
+                    "(bundled sets are single-focus 1 m captures)")
+
+
+def _infer_outputs(net, stack, gt_depth, gt_aif=None) -> dict:
+    """The monitor's outputs of one frame: the depth, and in deblur mode
+    the refined depth and the all-in-focus image with its truth."""
+    pred = dfdp_infer(net, stack)
+    if net.train_mode != "deblur":
+        return {"gt_depth": gt_depth, "pred_depth_est": pred.cpu().numpy()}
+    depth, depth_fix, aif = pred
+    return {"gt_depth": gt_depth, "pred_depth_est": depth.cpu().numpy(),
+            "pred_depth_fix": depth_fix.cpu().numpy(),
+            "pred_aif": aif.float().cpu().numpy(),
+            "gt_aif": None if gt_aif is None else np.asarray(gt_aif)}
+
+
 def test_depth(net, test_set, device, scene: str | None = None, epoch: int = 0,
                args: dict | None = None):
-    """Depth metrics of the net over a real DP set, averaged over frames.
-    With a ``scene`` name the averages are logged, and with ``args`` (unless
-    ``args["save_ckpt"]`` is false) the net is kept by the monitor's
-    last/best policy under ``args["results_dir"]``."""
-    monitor = ResultsMonitor()
+    """Depth metrics of the net over a real DP set, averaged over frames
+    (in deblur mode also those of the refined depth; the real sets carry no
+    all-in-focus truth). With a ``scene`` name the averages are logged, and
+    with ``args`` (unless ``args["save_ckpt"]`` is false) the net is kept
+    by the monitor's last/best policy under ``args["results_dir"]``."""
+    monitor = ResultsMonitor(net.train_mode)
     t_infer = 0.0
     for idx in range(len(test_set)):
         imgs, gt_depth = test_set[idx]
         t0 = time.perf_counter()
         stack = torch.from_numpy(imgs[None]).to(device)
-        pred = dfdp_infer(net, stack).cpu().numpy()
+        outputs = _infer_outputs(net, stack, gt_depth)
         t_infer += time.perf_counter() - t0
-        monitor.set_outputs({"pred_depth_est": pred, "gt_depth": gt_depth})
+        monitor.set_outputs(outputs)
         monitor.compute_metrics()
     n = len(test_set)
     if scene is not None:
@@ -121,8 +148,9 @@ def _render_batch(lens, aif, gt_depth, generator=None, train: bool = False):
 
     The all-in-focus image goes to the device as uint8 (round(x * 255)) and
     the depth as f16, both widened there, as the JAX app uploads them: the
-    render sees the quantised values. Returns (stack [B, 6, H, W], depth
-    [B, 1, H, W] f32 metres, aif [B, 3, H, W] f32), on the device."""
+    render sees the quantised values. Returns (stack [B, 6V, H, W] for a
+    lens of V views, depth [B, 1, H, W] f32 metres, aif [B, 3, H, W] f32),
+    on the device."""
     dev = lens.device
     aif_u8 = torch.from_numpy((np.asarray(aif) * 255.0 + 0.5).astype(np.uint8))
     depth_f16 = torch.from_numpy(np.asarray(gt_depth).astype(np.float16))
@@ -137,16 +165,16 @@ def _render_batch(lens, aif, gt_depth, generator=None, train: bool = False):
 
 
 def validate(net, test_lens, valid_set, scene, args, epoch=0):
-    """Depth metrics on rendered (noise-free) pairs of a synthetic set; the
-    net is kept by the monitor's last/best policy."""
+    """Depth metrics on rendered (noise-free) pairs of a synthetic set (in
+    deblur mode also the refined depth's, and the all-in-focus image's PSNR
+    and SSIM against the scene); the net is kept by the monitor's last/best
+    policy."""
     loader = DataLoader(valid_set, batch_size=1, num_workers=2)
-    monitor = ResultsMonitor()
+    monitor = ResultsMonitor(net.train_mode)
     n = len(valid_set)
     for aif, gt_depth in loader:
         stack, _, _ = _render_batch(test_lens, aif, gt_depth, train=False)
-        pred = dfdp_infer(net, stack)
-        monitor.set_outputs({"gt_depth": gt_depth,
-                             "pred_depth_est": pred.cpu().numpy()})
+        monitor.set_outputs(_infer_outputs(net, stack, gt_depth, aif))
         monitor.compute_metrics()
     logging.info(f"Validate Depth Est on {scene}")
     monitor.logging(epoch, n)
@@ -181,17 +209,16 @@ def _ms(start, end) -> float:
 
 def train(args, device="cuda") -> dict:
     """``--stage train``. Returns {"state", "start_epoch", "epochs_trained",
-    "best_acc1", "val": [per-epoch metrics], "losses": [per step],
+    "best_acc1", "val": [per-epoch metrics], "losses": [per step total],
+    "loss_terms": [per step, every term of the loss],
     "steps": [per-step timings], "epoch_seconds": [per trained epoch]}:
     each step's timing holds the host's wait for the batch (s), the render
     and the train step (ms; CUDA events on the card); an epoch's seconds
     run from its loader's start to its last loss on the host."""
     if args.get("data_parallel"):
         raise NotImplementedError(NOT_PORTED.format(what="data-parallel training",
-                                                    item=8))
-    if args.get("train_mode", "dfdp") != "dfdp":
-        raise NotImplementedError(NOT_PORTED.format(
-            what=f"train_mode {args['train_mode']!r}", item=5))
+                                                    item=7))
+    train_mode = args.get("train_mode", "dfdp")
     dev = resolve_device(device)
     wd = StallWatchdog(timeout_s=float(args.get("stall_timeout_s", 1800)))
     train_lens, test_lens = get_lens(args, device=dev)
@@ -200,8 +227,11 @@ def train(args, device="cuda") -> dict:
     logging.info(f"Totally {len(nyu_fs_train)} images for training, "
                  f"{len(val_set)} images for test.")
 
-    state = create_dfdp_state(build_basenet(seed=0, device=dev, train=True),
-                              args["lr"], _total_steps(args, len(nyu_fs_train)))
+    n_views = getattr(train_lens, "n_views", 1)
+    net = build_basenet(seed=0, device=dev, train=True, train_mode=train_mode,
+                        n_views=n_views)
+    state = create_dfdp_state(net, args["lr"],
+                              _total_steps(args, len(nyu_fs_train)))
     pretrained = args["train"].get("dfdpnet_pretrained")
     if pretrained:
         try:
@@ -254,7 +284,8 @@ def train(args, device="cuda") -> dict:
 
     wd.beat()
     out = {"state": state, "start_epoch": resume_epoch, "epochs_trained": 0,
-           "val": [], "losses": [], "steps": [], "epoch_seconds": []}
+           "val": [], "losses": [], "loss_terms": [], "steps": [],
+           "epoch_seconds": []}
     cuda = dev.type == "cuda"
     for epoch in range(resume_epoch, args["epochs"] + 1):
         # epoch-keyed noise: the same draws whether or not the run resumed
@@ -263,7 +294,10 @@ def train(args, device="cuda") -> dict:
         val_metrics = validate(state.net, test_lens, val_set, "fs", args, epoch)
         out["val"].append(val_metrics)
         wd.beat()
-        test_depth(state.net, box_set, dev, "box", epoch, args)
+        if n_views == 1:
+            test_depth(state.net, box_set, dev, "box", epoch, args)
+        elif epoch == resume_epoch:
+            logging.info(MULTI_FOCUS_SKIP)
         wd.beat()
         if ckpt_out and val_metrics["acc1"] > best_acc1:
             best_acc1 = val_metrics["acc1"]
@@ -284,12 +318,13 @@ def train(args, device="cuda") -> dict:
 
         def drain():
             nonlocal epoch_loss
-            for loss in pending:
-                loss = float(loss)
-                if not np.isfinite(loss):
-                    raise FloatingPointError(f"non-finite train loss {loss}")
-                epoch_loss += loss
-                out["losses"].append(loss)
+            for losses in pending:
+                terms = {k: float(v) for k, v in losses.items()}
+                if not all(np.isfinite(v) for v in terms.values()):
+                    raise FloatingPointError(f"non-finite train loss {terms}")
+                epoch_loss += terms["total"]
+                out["losses"].append(terms["total"])
+                out["loss_terms"].append(terms)
             pending.clear()
             wd.beat()
 
@@ -301,12 +336,14 @@ def train(args, device="cuda") -> dict:
                 break
             t_wait = time.perf_counter() - t_wait
             m0 = _mark(cuda)
-            stack, depth_dev, _ = _render_batch(train_lens, *batch, generator,
-                                                train=True)
+            stack, depth_dev, aif_dev = _render_batch(train_lens, *batch,
+                                                      generator, train=True)
             m1 = _mark(cuda)
-            losses = dfdp_train_step(state, stack, depth_dev)
+            losses = dfdp_train_step(
+                state, stack, depth_dev,
+                aif_dev if train_mode == "deblur" else None)
             timing.append((t_wait, m0, m1, _mark(cuda)))
-            pending.append(losses["total"])
+            pending.append(losses)
             n_steps += 1
             if len(pending) >= 8:
                 drain()
@@ -347,17 +384,20 @@ def train(args, device="cuda") -> dict:
     return out
 
 
-def _depth_net(args, dev):
-    """The config's trained net, or an untrained one (with a warning) when
-    the config names none. Returns (net, tag suffix)."""
+def _depth_net(args, dev, n_views: int = 1):
+    """The config's trained net (``args["train_mode"]``, ``n_views``), or an
+    untrained one (with a warning) when the config names none. Returns
+    (net, tag suffix)."""
+    kw = dict(device=dev, train_mode=args.get("train_mode", "dfdp"),
+              n_views=n_views)
     ckpt = args["train"].get("dfdpnet_pretrained")
     if ckpt:
-        return build_basenet(ported_weights(ckpt), device=dev), ""
+        return build_basenet(ported_weights(ckpt), **kw), ""
     logging.warning("No pretrained DfDP checkpoint found - depth metrics "
                     "below come from an UNTRAINED net and are meaningless "
                     "(DP-image fidelity above is checkpoint-free). Train "
                     "one with --stage train or set train.dfdpnet_pretrained.")
-    return build_basenet(seed=0, device=dev), "-UNTRAINED(no ckpt)"
+    return build_basenet(seed=0, **kw), "-UNTRAINED(no ckpt)"
 
 
 def run_eval(args: dict, stage: str = "sample", device="cuda",
@@ -375,12 +415,16 @@ def run_eval(args: dict, stage: str = "sample", device="cuda",
     flat_set = get_flat_test_set(args) if full else get_flat_sample_set(args)
     flat = test_dp_images(lens, flat_set, variant)
     t1 = time.perf_counter()
-    net, untrained = _depth_net(args, dev)
-    sets = get_depth_test_set(args) if full else get_depth_sample_set(args)
+    n_views = getattr(lens, "n_views", 1)
+    net, untrained = _depth_net(args, dev, n_views)
     depth = {}
-    for tag, ds in zip(("box", "f2d", "casual"), sets):
-        depth[tag] = test_depth(net, ds, dev)
-        logging.info(f"depth {tag}{untrained}: {depth[tag]}")
+    if n_views > 1:
+        logging.info(MULTI_FOCUS_SKIP)
+    else:
+        sets = get_depth_test_set(args) if full else get_depth_sample_set(args)
+        for tag, ds in zip(("box", "f2d", "casual"), sets):
+            depth[tag] = test_depth(net, ds, dev)
+            logging.info(f"depth {tag}{untrained}: {depth[tag]}")
     t2 = time.perf_counter()
     return {"flat": flat, "depth": depth,
             "seconds": {"render_part": t1 - t0, "depth_part": t2 - t1}}
@@ -397,11 +441,12 @@ def write_csv(result: dict, out_dir: str):
         w = csv.DictWriter(f, fieldnames=FLAT_COLUMNS)
         w.writeheader()
         w.writerows(result["flat"])
+    keys = tuple(next(iter(result["depth"].values()), DEPTH_METRICS))
     with open(f"{out_dir}/depth.csv", "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(("set",) + DEPTH_METRICS)
+        w.writerow(("set",) + keys)
         for tag, m in result["depth"].items():
-            w.writerow((tag,) + tuple(m[k] for k in DEPTH_METRICS))
+            w.writerow((tag,) + tuple(m[k] for k in keys))
 
 
 def main(argv=None) -> dict:
@@ -414,16 +459,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=None,
                     help="result folder (default ./results/<time>-Sdirt_torch)")
     ap.add_argument("--train-mode", choices=("dfdp", "deblur"), default="dfdp",
-                    help=NOT_PORTED.format(what="'deblur'", item=5))
+                    help="'deblur' adds the Mydeblur refinement head and its "
+                         "depth_fix / aif loss terms")
     ap.add_argument("--data-parallel", action="store_true",
-                    help=NOT_PORTED.format(what="data-parallel training", item=8))
+                    help=NOT_PORTED.format(what="data-parallel training", item=7))
     cli = ap.parse_args(argv)
-    if cli.train_mode != "dfdp":
-        raise NotImplementedError(NOT_PORTED.format(what="--train-mode deblur",
-                                                    item=5))
     if cli.data_parallel:
         raise NotImplementedError(NOT_PORTED.format(what="--data-parallel",
-                                                    item=8))
+                                                    item=7))
     resolve_device(cli.device)
     args = load_config(cli.config)
     out = cli.out or ("./results/" + datetime.now().strftime("%m%d-%H%M%S")

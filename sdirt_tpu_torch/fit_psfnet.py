@@ -13,9 +13,9 @@ gets ``lens.json``, the resumable train state (``state/``), the fitted net
 ``compare_psf.npz`` (traced vs predicted PSFs). Matrix products run in full
 f32: TF32 is switched off, as the JAX code asks for ``Precision.HIGHEST``.
 
-Not ported yet (ROADMAP.md §1, left out of slice 2): the lens analysis of
-``optics/analysis.py`` (so ``--skip-analysis`` is required), the multi-chip
-``--mesh``, and ``compare_psf``'s figures.
+Not ported yet (ROADMAP.md §1): the lens analysis of ``optics/analysis.py``
+(so ``--skip-analysis`` is required) and ``compare_psf``'s figures (item 1),
+and the multi-chip ``--mesh`` (item 7).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from .psfnet.surrogate import PSFNetLens
 from .psfnet.train import fit_psfnet
 from .utils.device import resolve_device
 
-NOT_PORTED = "not ported yet (ROADMAP.md §1, left out of slice 2: {what})"
+NOT_PORTED = "not ported yet (ROADMAP.md §1 item {item}: {what})"
 
 
 def parse_args(argv=None):
@@ -64,7 +64,7 @@ def parse_args(argv=None):
                     help="resumable train-state checkpoints kept")
     ap.add_argument("--eval-spp", type=int, default=65536)
     ap.add_argument("--mesh", type=int, nargs=2, metavar=("DATA", "RAYS"),
-                    default=None, help=NOT_PORTED.format(what="multi-GPU"))
+                    default=None, help=NOT_PORTED.format(item=7, what="multi-GPU"))
     return ap.parse_args(argv)
 
 
@@ -73,11 +73,12 @@ def main(argv=None) -> dict:
     "seconds"} (losses per step, evals as (step, l1, l2))."""
     args = parse_args(argv)
     if args.mesh is not None:
-        raise NotImplementedError("--mesh: " + NOT_PORTED.format(what="multi-GPU"))
+        raise NotImplementedError("--mesh: " + NOT_PORTED.format(item=7,
+                                                                 what="multi-GPU"))
     if not args.skip_analysis:
         raise NotImplementedError(
             "the lens analysis (optics/analysis.py) is "
-            + NOT_PORTED.format(what="optics/analysis.py") + "; pass --skip-analysis")
+            + NOT_PORTED.format(item=1, what="optics/analysis.py") + "; pass --skip-analysis")
     device = resolve_device(args.device)
     # full-f32 matrix products in the splat and the MLP
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -14,6 +14,7 @@ name; only the leaves change:
                                              it unflipped to the dilated input)
   BatchNorm scale / bias / mean / var     -> weight / bias / running_mean /
                                              running_var
+  any other parameter (CAMModule's gamma) -> the parameter of that name
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 COLLECTIONS = ("params", "batch_stats")
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
+# parameters that keep their Flax name and layout
+_PLAIN_LEAVES = ("gamma",)
 
 
 def _kernel_to_torch(module: str, k: np.ndarray) -> np.ndarray:
@@ -57,17 +60,18 @@ def flax_to_torch(flat: dict) -> dict[str, torch.Tensor]:
         parts = key.split("/")
         if parts[0] in COLLECTIONS:
             parts = parts[1:]
-        *path, module, leaf = parts
+        *path, leaf = parts
+        module = path[-1] if path else ""
         arr = np.asarray(arr, np.float32)
         if leaf == "kernel":
             name, arr = "weight", _kernel_to_torch(module, arr)
         elif module.startswith("BatchNorm"):
             name = _BN_LEAVES[leaf]
-        elif leaf == "bias":
-            name = "bias"
+        elif leaf == "bias" or leaf in _PLAIN_LEAVES:
+            name = leaf
         else:
             raise KeyError(f"unknown Flax leaf {key}")
-        out[".".join([*path, module, name])] = torch.from_numpy(
+        out[".".join([*path, name])] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return out
 
@@ -79,7 +83,8 @@ def torch_to_flax(state: dict) -> dict[str, np.ndarray]:
     inv_bn = {v: k for k, v in _BN_LEAVES.items()}
     out = {}
     for key, t in state.items():
-        *path, module, name = key.split(".")
+        *path, name = key.split(".")
+        module = path[-1] if path else ""
         if name == "num_batches_tracked":
             continue
         arr = t.detach().cpu().float().numpy()
@@ -92,7 +97,7 @@ def torch_to_flax(state: dict) -> dict[str, np.ndarray]:
                 coll = "batch_stats"
         else:
             leaf = name
-        out["/".join([coll, *path, module, leaf])] = np.ascontiguousarray(arr)
+        out["/".join([coll, *path, leaf])] = np.ascontiguousarray(arr)
     return out
 
 

@@ -33,8 +33,10 @@ def _conv_inputs(seed, n, h, w, c, ks, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,h,w,c,ks", [(1, 512, 768, 3, 21), (1, 500, 750, 3, 21),
-                                        (2, 40, 56, 3, 21), (1, 37, 29, 1, 7)],
-                         ids=["serve", "ragged", "batch2", "c1_ks7"])
+                                        (2, 40, 56, 3, 21), (1, 37, 29, 1, 7),
+                                        (1, 256, 384, 3, 35), (2, 250, 379, 3, 35)],
+                         ids=["serve", "ragged", "batch2", "c1_ks7", "f18_ks35",
+                              "ragged_ks35"])
 def test_fused_dp_conv_kernel_matches_plain(n, h, w, c, ks):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")

@@ -138,6 +138,43 @@ def test_import_guard_covers_the_variants_slice():
     assert set(VARIANT_SLICE) <= files
 
 
+# the modules of the deblur / F/1.8 / stack / thin-lens slice
+CONFIGS_SLICE = ("dfdp/models/dddnet.py", "dfdp/models/layers.py",
+                 "dfdp/basenet.py", "dfdp/train.py", "dfdp/monitor.py",
+                 "dfdp/factory.py", "psfnet/stack.py", "psfnet/thinlens.py",
+                 "utils/weights.py", "eval_farfield_ab.py", "dfdp_net.py")
+
+
+def test_import_guard_covers_the_configs_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(CONFIGS_SLICE) <= files
+
+
+AB_ARMS = ["--arm", "f4", "ckpt/rf50mm/Sdirt_f4_farfield",
+           "ckpt/rf50mm/F4_PSFNet_mlp", "21", "--val-len", "1"]
+
+
+def test_farfield_ab_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """python -m sdirt_tpu_torch.eval_farfield_ab runs on the card unless
+    --device names the CPU, and raises without a card instead of falling
+    back; so do the new lenses."""
+    from sdirt_tpu_torch import eval_farfield_ab
+    from sdirt_tpu_torch.psfnet.thinlens import ThinLens
+
+    assert inspect.signature(ThinLens.__init__).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_farfield_ab.main(AB_ARMS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ThinLens(50.0, 1.8, 21, [24, 36], (64, 96))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dfdp_net.main(["--stage", "sample", "--train-mode", "deblur", "--config",
+                       "configs/dfdp_synthetic_train_128_deblur_cpu.yml"])
+
+
 def test_gate_entry_point_defaults_to_the_card():
     from sdirt_tpu_torch import gate_render_variants
 

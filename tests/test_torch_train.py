@@ -262,8 +262,24 @@ def test_losses_match_jax():
     assert set(got) == {"depth_est", "total"}
     for k in got:
         np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TB.compute_loss({}, got_log, got_mask, train_mode="deblur")
+    # deblur mode: 2 depth_est + depth_fix + aif, the aif term a plain mean
+    fix = rng.normal(0, 1, pred.shape).astype(np.float32)
+    aif = rng.uniform(0, 1, (2, 3, 8, 12)).astype(np.float32)
+    gt_aif = rng.uniform(0, 1, aif.shape).astype(np.float32)
+    ref = JB.compute_loss({"pred_depth_est": jnp.asarray(pred),
+                           "pred_depth_fix": jnp.asarray(fix),
+                           "pred_aif": jnp.asarray(aif)}, ref_log, ref_mask,
+                          jnp.asarray(gt_aif), "deblur")
+    got = TB.compute_loss({"pred_depth_est": torch.from_numpy(pred),
+                           "pred_depth_fix": torch.from_numpy(fix),
+                           "pred_aif": torch.from_numpy(aif)}, got_log,
+                          got_mask, torch.from_numpy(gt_aif), "deblur")
+    assert set(got) == {"depth_est", "depth_fix", "aif", "total"}
+    for k in got:
+        np.testing.assert_allclose(float(got[k]), float(ref[k]), rtol=1e-6)
+    with pytest.raises(ValueError, match="gt_aif"):
+        TB.compute_loss({"pred_depth_est": torch.from_numpy(pred)}, got_log,
+                        got_mask, train_mode="deblur")
 
 
 @pytest.mark.parametrize("shape", [(3, 5, 6, 7), (2, 4, 3, 5, 6)],

@@ -76,7 +76,10 @@ def test_committed_exports_equal_fresh_export(name):
 
 
 NEW_EXPORTS = [("rf50mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "F4_PSFNet_mlp"),
-               ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1")]
+               ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"),
+               ("rf50mm", "F18_PSFNet_mlp_ks35"), ("rf50mm", "F4_PSFNet_mlp@256"),
+               ("rf50mm", "Sdirt_f4_farfield"), ("rf50mm", "Sdirt_f18_farfield"),
+               ("rf50mm", "Sdirt_deblur_demo_cpu")]
 
 
 def _export_script():
@@ -92,10 +95,14 @@ def _export_script():
 
 @pytest.mark.parametrize("lens,name", NEW_EXPORTS, ids=[f"{l}/{n}" for l, n in NEW_EXPORTS])
 def test_lens_exports_equal_fresh_export(lens, name):
-    """The rf35mm trees and both lenses' promoted basis students: the
-    committed .npz equal a fresh restore of the orbax trees, and the port
-    builds each net from its name and loads it strictly."""
-    fresh = _export_script().tree(lens, name)
+    """The rf35mm trees, both lenses' promoted basis students, the far-field
+    A/B's nets (the F/1.8 ks-35 surrogate), the 256-wide F/4 surrogate and
+    the deblur demo net: the committed .npz equal a fresh restore of the
+    orbax trees (inference leaves only), and the port builds each net from
+    its name and loads it strictly."""
+    export = _export_script()
+    fresh = export.tree(lens, name)
+    assert {k.split("/")[0] for k in fresh} <= {"params", "batch_stats"}
     path = os.path.join(ROOT, "sdirt_tpu_torch", "weights", lens, f"{name}.npz")
     committed = load_npz(path)
     assert set(committed) == set(fresh)
@@ -103,11 +110,13 @@ def test_lens_exports_equal_fresh_export(lens, name):
         assert committed[k].dtype == np.float32
         np.testing.assert_array_equal(committed[k], v, err_msg=k)
     if name.startswith("Sdirt"):
-        build_basenet(path, device="cpu")
+        mode = "deblur" if name in export.DEBLUR_NETS else "dfdp"
+        net = build_basenet(path, device="cpu", train_mode=mode)
+        assert hasattr(net, "deblur_net") == (mode == "deblur")
     else:
         from sdirt_tpu_torch.utils.weights import load_state
 
-        load_state(build_psfnet(name.split("PSFNet_")[1], 21), path)
+        load_state(build_psfnet(*export.psfnet_arch(name)), path)
 
 
 def test_exports_are_what_the_port_loads():
@@ -120,6 +129,23 @@ def test_exports_are_what_the_port_loads():
     on_disk = {(l, f[:-4]) for l in ("rf50mm", "rf35mm")
                for f in os.listdir(os.path.join(ROOT, "sdirt_tpu_torch", "weights", l))}
     assert on_disk == names
+
+
+@pytest.mark.parametrize("train_mode,n_views", [("deblur", 1), ("dfdp", 2)])
+def test_deblur_and_stack_nets_roundtrip(train_mode, n_views):
+    """The deblur Basenet (Mydeblur: biased convolutions, transposed ones,
+    the attention gamma) and a 2-view net (a 6-channel feature tower)."""
+    from sdirt_tpu.dfdp.basenet import Basenet
+
+    shapes = jax.eval_shape(lambda: Basenet(train_mode=train_mode).init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 6 * n_views, 128, 192)),
+        train=False))
+    rng = np.random.default_rng(1)
+    flat = {f"{coll}/{k}": rng.normal(size=s.shape).astype(np.float32)
+            for coll in ("params", "batch_stats") for k, s in
+            flax.traverse_util.flatten_dict(shapes[coll], sep="/").items()}
+    _roundtrip(flat, build_basenet(device="cpu", train_mode=train_mode,
+                                   n_views=n_views))
 
 
 def test_basis_student_roundtrip():
