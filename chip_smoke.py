@@ -26,9 +26,13 @@ Phases, each printing its elapsed seconds:
      same pupil samples;
   6. fit path: ``python -m sdirt_tpu_torch.fit_psfnet`` at the published
      width (rf50mm, mlp, ks 21, 512x768, bs 64 x 20000 rays, eval 1024 x
-     65536 rays) for 21 steps, through its main(); K1's launch count is
-     read around it, the loss must fall, and the fitted net is loaded into
-     a serve-path PSFNetLens that renders one flat scene;
+     65536 rays) for 21 steps, through its main(), with the lens analysis
+     at -500 and -20000 mm; K1's launch count is read around it, the loss
+     must fall, the analysis's RMS radii and PSF maps are held against
+     sdirt_tpu_torch/reference/analysis_jax_cpu.json (5x the JAX spread)
+     and its files read back, time_compare_psf's two times printed, and
+     the fitted net is loaded into a serve-path PSFNetLens that renders
+     one flat scene;
   7. shipped surrogate: the fit's lens and eval (K1 ground truth) on the
      exported F4_PSFNet_mlp, held against the JAX package's CPU numbers
      (sdirt_tpu_torch/reference/fit_psfnet_jax_cpu.json);
@@ -96,7 +100,22 @@ Phases, each printing its elapsed seconds:
      twice per step and validation item, the real captures skipped with the
      JAX log line); a torch.profiler breakdown of one render + train
      step; one ThinLens batch on the card against the CPU;
- 18. the kernels line, then the card's name and power limit, then the
+ 18. mlpconv and siren fits: ``fit_psfnet.main()`` with ``--model mlpconv``
+     and ``--model siren`` at the published width (11 steps and one eval
+     each, ``--skip-analysis``: the analysis does not depend on the net and
+     runs in phase 6): finite losses, K1 launches, each head's train step
+     timed;
+ 19. baselines: pred_coc, pred_dpdnet, pred_modeling and pred_learn2reduce
+     on a 512x768 depth map at ks 21, on the card against their CPU run
+     (1e-6), ms per call;
+ 20. coherent demo: ``coherent_demo.main()`` at its defaults with
+     ``--image``; then the coherent grid at the JAX run's sensor distance
+     held against sdirt_tpu_torch/reference/coherent_jax_cpu.json (ring
+     contrasts and radial profiles, COHERENT_TOL), ms per coherent grid;
+ 21. lens design: ``demo_lens_design.main()`` at its defaults on the JAX
+     package's draws, its three RMS tables and RECOVERY OK held against
+     sdirt_tpu_torch/reference/lens_design_jax_cpu.npz, ms per step;
+ 22. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -146,7 +165,30 @@ FIT_ARGS = ["--device", "cuda", "--lens", "lenses/rf50mm/lens_web.json",
             "--model", "mlp", "--ks", "21", "--res", "512", "768",
             "--focus-mm", "-1000", "--bs", "64", "--spp", "20000",
             "--iters", "20", "--evaluate-every", "10", "--eval-bs", "1024",
-            "--eval-spp", "65536", "--skip-analysis"]
+            "--eval-spp", "65536"]
+# the other heads at the same width, cut in length: 11 steps and one eval;
+# the lens analysis, which does not depend on the net, runs in phase 6
+HEAD_FIT_ARGS = ["--device", "cuda", "--lens", "lenses/rf50mm/lens_web.json",
+                 "--ks", "21", "--res", "512", "768", "--focus-mm", "-1000",
+                 "--bs", "64", "--spp", "20000", "--iters", "10",
+                 "--evaluate-every", "11", "--eval-bs", "1024", "--eval-spp", "65536",
+                 "--skip-analysis"]
+BASELINES = ("pred_coc", "pred_dpdnet", "pred_modeling", "pred_learn2reduce")
+# plain tensor functions: the card against its own CPU run
+BASELINE_TOL = 1e-6
+COHERENT_DEPTHS = (-1000.0, -1100.0, -1300.0)
+# the coherent demo against the JAX CPU run made op by op (each operation
+# rounded as written, as the port computes), at that run's sensor distance.
+# The coherent PSF is f32-limited (a ray's first step, t ~ 1 m, carries ~0.6
+# rad of phase rounding); the port on the CPU is within 0.005 (ring contrast)
+# and 0.038 (radial profile) of it for the coherent PSF, 2.6e-5 (profile)
+# for the incoherent one, at these settings; the jitted JAX run differs from
+# the op-by-op one by up to 0.094 in contrast
+COHERENT_TOL = {"contrast_coherent": 0.04, "profile_coherent": 0.2,
+                "contrast_incoherent": 1e-3, "profile_incoherent": 2e-3}
+# the lens-design demo on the JAX package's draws: RMS tables in um; the CPU
+# float32 run of the port is within 5.5e-3 (nominal) and 4.4e-3 (recovered)
+LENS_DESIGN_TOL = {"nominal": 0.02, "detuned": 0.02, "recovered": 0.1}
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 F32_FLOPS = 67e12               # H100 SXM, f32 outside the tensor cores
 # the first CUDA versions of the kernels (one thread per ray with every
@@ -1219,6 +1261,234 @@ def stack_phase(dfdp_net, fused_conv, smi):
             "thinlens_ms": thin_ms, "thinlens_card_vs_cpu": diff}
 
 
+def analysis_check(fit, out, fitted):
+    """The fit's lens analysis (phase 6) against the JAX CPU reference: the
+    RMS radii and d_sensor within 5x the JAX spread over three keys, the
+    per-cell max-normalised PSF map's mean |difference| from the JAX mean
+    map within 5x the JAX keys' spread; every file read back; then
+    time_compare_psf on the fitted surrogate."""
+    from sdirt_tpu_torch.dfdp.datasets import read_png
+
+    with open(os.path.join(REF_DIR, "analysis_jax_cpu.json")) as f:
+        ref = json.load(f)["stats"]
+    failed, result = [], {"seconds": {}, "rms": {}, "psf_map_mean_abs": {}}
+    st = ref["d_sensor"]
+    d = fit["d_sensor"] - st["mean"]
+    print(f"analysis d_sensor {fit['d_sensor']!r}: JAX CPU mean {st['mean']!r}, diff "
+          f"{d:+.3e}, tolerance {st['tolerance']:.3e}")
+    if not abs(d) <= st["tolerance"]:
+        failed.append("d_sensor")
+    for depth, rms in fit["analysis"].items():
+        st = ref[str(depth)]
+        secs = fit["seconds"]["analysis"][depth]
+        result["seconds"][str(depth)] = secs
+        result["rms"][str(depth)] = rms
+        print(f"analysis at {depth} mm: {secs:.3f} s")
+        for k, v in zip(("rms_avg", "rms_on", "rms_off"), rms):
+            d = v - st[k]["mean"]
+            print(f"  {k}: {v * 1e3:.4f} um (JAX CPU mean {st[k]['mean'] * 1e3:.4f}, spread "
+                  f"{st[k]['spread'] * 1e3:.4f}, diff {d * 1e3:+.4f}, tolerance "
+                  f"{st[k]['tolerance'] * 1e3:.4f})")
+            if not (np.isfinite(v) and abs(d) <= st[k]["tolerance"]):
+                failed.append(f"{depth} {k}")
+        tag = int(depth)
+        setup = np.load(os.path.join(out, f"{tag}.npz"))
+        png = read_png(os.path.join(out, f"{tag}_psf{-tag}mm_left.png"))
+        psf_map = np.load(os.path.join(out, f"{tag}_psf{-tag}mm_left.npz"))["psf_map"]
+        ref_map = read_png(os.path.join(REF_DIR, st["psf_map"]["png"])) / 255.0
+        mad = float(np.abs(psf_map - ref_map).mean())
+        result["psf_map_mean_abs"][str(depth)] = mad
+        print(f"  files: {tag}.npz ({len(setup.files)} arrays), PSF map PNG "
+              f"{png.shape} {png.dtype}; map mean |diff| from the JAX mean map {mad:.4f} "
+              f"(JAX keys' spread {st['psf_map']['spread_mean_abs']:.4f}, tolerance "
+              f"{st['psf_map']['tolerance_mean_abs']:.4f})")
+        if png.shape != psf_map.shape or not mad <= st["psf_map"]["tolerance_mean_abs"]:
+            failed.append(f"{depth} psf map")
+    panels = sorted(p for p in os.listdir(out) if p.startswith("compare_") and p.endswith(".png"))
+    shapes = {read_png(os.path.join(out, p)).shape for p in panels}
+    print(f"compare_psf panels read back: {len(panels)} PNGs of shape {shapes}")
+    if len(panels) != 6:
+        failed.append("compare_psf panels")
+    if failed:
+        raise RuntimeError(f"the lens analysis is off the JAX reference: {failed}")
+    t_rt, t_net = fitted.time_compare_psf(log_fn=lambda m: print(f"time_compare_psf: {m}"))
+    result["time_compare_psf_s"] = {"ray_tracing": t_rt, "network": t_net}
+    # the analysis's per-surface trace of one RMS bundle (31 x 31 x 2048 rays)
+    bundle = fitted.sample_point_source(depth=-1000.0, R=100.0, M=31, spp=2048,
+                                        generator=torch.Generator(device="cuda").manual_seed(0))
+    ms = cuda_time_ms(lambda: fitted.trace(bundle), 5)
+    print_profile("per-surface trace, 31 x 31 x 2048 rays", *device_profile(
+        lambda: fitted.trace(bundle), 3), 3, ms)
+    result["rms_bundle_trace_ms"] = ms
+    return result
+
+
+def fit_heads_phase(fit_psfnet, fused_trace, PSFNetLens, create_train_state,
+                    make_train_step, smi):
+    """The mlpconv and siren fits at the published width through
+    fit_psfnet.main() (11 steps, one eval): finite losses, K1 launched; then
+    each head's train step timed by CUDA events."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for model in ("mlpconv", "siren"):
+        with tempfile.TemporaryDirectory() as tmp:
+            fused_trace.launches = 0
+            res = fit_psfnet.main(HEAD_FIT_ARGS + ["--model", model, "--result-dir", tmp])
+            launches = fused_trace.launches
+            saved = os.path.exists(os.path.join(tmp, f"psfnet_{model}.npz"))
+        losses = np.array(res["losses"])
+        print(f"fit {model}: {len(losses)} steps, losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+              f"evals {res['evals']}; K1 launches {launches}; host seconds {res['seconds']}")
+        if not (np.isfinite(losses).all() and all(np.isfinite(e[1:]).all() for e in res["evals"])
+                and launches > 0 and saved):
+            raise RuntimeError(f"the {model} fit failed (losses finite, K1 launched, net saved)")
+        lens = PSFNetLens("lenses/rf50mm/lens_web.json", model_name=model, kernel_size=KS,
+                          sensor_res=(512, 768), device="cuda")
+        lens.refocus(-1000.0 + lens.d_sensor)
+        state = create_train_state(lens.net, 1e-4, 90000)
+        step_fn = make_train_step(lens, bs=64, spp=20000, ks=KS)
+        step_ms = cuda_time_ms(lambda: step_fn(state, gen), 10)
+        print(f"fit {model}: train step {step_ms:.3f} ms (CUDA events, bs 64 x 20000 rays); {smi}")
+        out[model] = {"k1_launches": launches, "step_ms": step_ms,
+                      "loss_first": float(losses[0]), "loss_last": float(losses[-1])}
+    return out
+
+
+def baselines_phase(PSFNetLens):
+    """The four baseline models on a 512 x 768 depth map at ks 21: the card
+    against its CPU run of the same function on the same inputs and lens
+    scalars, and ms per call."""
+    from sdirt_tpu_torch.psfnet import baselines
+
+    lens = PSFNetLens("lenses/rf50mm/lens_web.json", kernel_size=KS, sensor_res=(512, 768),
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    inp = np.concatenate([rng.uniform(-1, 1, (512, 768, 2)),
+                          rng.uniform(0, 1, (512, 768, 1))], -1).astype(np.float32)
+    x_cpu = torch.from_numpy(inp)
+    x = x_cpu.cuda()
+    out = {}
+    for name in BASELINES:
+        fn = getattr(baselines, name)
+        got = fn(lens, x).cpu()
+        diff = float((got - fn(lens, x_cpu)).abs().max())
+        del got
+        ms = cuda_time_ms(lambda: fn(lens, x), 5)
+        print(f"baseline {name}: [512, 768, 2, {KS}, {KS}], card vs CPU max |diff| "
+              f"{diff:.3e} (tolerance {BASELINE_TOL:g}); {ms:.3f} ms per call")
+        if not diff <= BASELINE_TOL:
+            raise RuntimeError(f"baseline {name} on the card disagrees with its CPU run")
+        out[name] = {"max_abs_diff": diff, "ms": ms}
+    return out
+
+
+def coherent_phase(Lens):
+    """python -m sdirt_tpu_torch.coherent_demo at its defaults with --image
+    through its main(); then the coherent grid at the JAX CPU run's sensor
+    distance held against sdirt_tpu_torch/reference/coherent_jax_cpu.json,
+    and ms per coherent_psf_grid at M 512."""
+    from sdirt_tpu_torch import coherent_demo
+    from sdirt_tpu_torch.dfdp.datasets import read_png
+    from sdirt_tpu_torch.dp.coherent import coherent_psf_grid
+
+    with open(os.path.join(REF_DIR, "coherent_jax_cpu.json")) as f:
+        ref = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = coherent_demo.main(["--device", "cuda", "--image", "--out", tmp])
+        secs = time.perf_counter() - t0
+        shapes = [read_png(os.path.join(tmp, f"psf_panel_{int(-d)}.png")).shape
+                  for d in COHERENT_DEPTHS]
+        image = read_png(os.path.join(tmp, "interference_image.png")).shape
+    print(f"coherent demo: {secs:.3f} s; panels {shapes}, image {image}")
+    if not all(np.isfinite(v["contrast"]).all() for v in res["depths"].values()):
+        raise RuntimeError("the coherent demo's contrasts are not finite")
+    lens = Lens("lenses/rf50mm/lens_web.json", sensor_res=(512, 768), device="cuda")
+    lens.d_sensor = ref["d_sensor"]
+    lens.post_computation()
+    failed, out = [], {"demo_s": secs, "depths": {}}
+    for depth in COHERENT_DEPTHS:
+        coh, inc = coherent_psf_grid(lens, depth, grid=1, ks=ref["ks"], M=ref["M"], ps=ref["ps"])
+        r = ref["depths"][str(depth)]
+        row = {}
+        for kind, psf in (("coherent", coh), ("incoherent", inc)):
+            prof = coherent_demo.radial_profile(psf[0, 0].cpu().numpy())
+            row[f"contrast_{kind}"] = coherent_demo.ring_contrast(prof)
+            row[f"profile_{kind}"] = float(np.abs(prof - np.array(r[f"profile_{kind}"])).max())
+        d_c = {k: abs(row[f"contrast_{k}"] - r[f"contrast_{k}"]) for k in ("coherent", "incoherent")}
+        print(f"coherent {depth} mm: ring contrast coherent {row['contrast_coherent']:.4f} (JAX CPU "
+              f"op by op {r['contrast_coherent']:.4f}, jitted "
+              f"{ref['depths_jit'][str(depth)]['contrast_coherent']:.4f}), incoherent "
+              f"{row['contrast_incoherent']:.4f} (JAX CPU {r['contrast_incoherent']:.4f}); radial "
+              f"profile max |diff| coherent {row['profile_coherent']:.4f}, incoherent "
+              f"{row['profile_incoherent']:.2e}")
+        for k in ("coherent", "incoherent"):
+            if not d_c[k] <= COHERENT_TOL[f"contrast_{k}"]:
+                failed.append(f"{depth} contrast {k}")
+            if not row[f"profile_{k}"] <= COHERENT_TOL[f"profile_{k}"]:
+                failed.append(f"{depth} profile {k}")
+        out["depths"][str(depth)] = row
+    if failed:
+        raise RuntimeError(f"coherent PSFs off the JAX reference: {failed}")
+    grid = lambda: coherent_psf_grid(lens, -1100.0, grid=1, ks=ref["ks"], M=ref["M"],
+                                     ps=ref["ps"])
+    out["grid_ms"] = cuda_time_ms(grid, 5)
+    print(f"coherent_psf_grid, one point, M {ref['M']} ({ref['M'] ** 2} rays), ks {ref['ks']}: "
+          f"{out['grid_ms']:.3f} ms (CUDA events)")
+    print_profile("coherent grid", *device_profile(grid, 3), 3, out["grid_ms"])
+    return out
+
+
+def lens_design_phase():
+    """python -m sdirt_tpu_torch.demo_lens_design at its defaults (300
+    steps) through its main(), on the JAX package's own draws, held against
+    sdirt_tpu_torch/reference/lens_design_jax_cpu.npz."""
+    from sdirt_tpu_torch import demo_lens_design
+
+    path = os.path.join(REF_DIR, "lens_design_jax_cpu.npz")
+    ref = np.load(path)
+    res = demo_lens_design.main(["--device", "cuda", "--draws", path])
+    failed, out = [], {"ms_per_step": res["ms_per_step"], "ok": res["ok"]}
+    for k, tol in LENS_DESIGN_TOL.items():
+        d = float(np.abs(res[k] - ref[k]).max())
+        out[k] = [float(v) for v in res[k]]
+        print(f"lens design {k}: {np.round(res[k], 4).tolist()} um (JAX CPU "
+              f"{np.round(ref[k], 4).tolist()}), max |diff| {d:.4f} (tolerance {tol})")
+        if not d <= tol:
+            failed.append(k)
+    print(f"lens design: {res['ms_per_step']:.3f} ms per optimisation step (host clock, "
+          f"300 steps); RECOVERY {'OK' if res['ok'] else 'WEAK'} (JAX CPU: "
+          f"{'OK' if int(ref['ok']) else 'WEAK'})")
+    # a step's trace, forward and backward (the three wavelengths in one)
+    from sdirt_tpu_torch.core.rays import Rays
+    from sdirt_tpu_torch.optics.lens import Lens
+    from sdirt_tpu_torch.optics.optimize import apply_params, optimizable_params
+
+    lens = Lens("lenses/rf50mm/lens_web.json", sensor_res=(512, 768), device="cuda")
+    eta = torch.stack([lens.eta_arrays(w, True)[0] for w in demo_lens_design.WVLNS],
+                      1)[..., None, None]
+    skip = lens.eta_arrays(demo_lens_design.WVLNS[0], True)[1]
+    pts = np.array([[0.0, 0.0, -20000.0]], np.float32).repeat(3, 0)
+    per_wvln = [lens.sample_from_points(pts, spp=256, xy=ref[f"pupil_{i}"]) for i in range(3)]
+    rays = Rays(*(torch.stack([getattr(r, a) for r in per_wvln]) for a in ("o", "d", "ra")))
+    params = optimizable_params(lens.stack)
+
+    def trace_step():
+        out_r = demo_lens_design.trace_rgb(rays, apply_params(lens.stack, params), eta,
+                                           skip, lens.d_sensor)
+        out_r.o[..., :2].square().sum().backward()
+
+    ms = cuda_time_ms(trace_step, 5)
+    print_profile("lens-design step's trace (3 wavelengths), forward + backward",
+                  *device_profile(trace_step, 3), 3, ms)
+    out["trace_step_ms"] = ms
+    if not (res["ok"] and int(ref["ok"])):
+        failed.append("recovery")
+    if failed:
+        raise RuntimeError(f"the lens-design demo is off the JAX reference: {failed}")
+    return out
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -1395,6 +1665,7 @@ def main():
         fitted = PSFNetLens("lenses/rf50mm/lens_web.json", kernel_size=KS,
                             sensor_res=(512, 768), device="cuda")
         fitted.load_net(os.path.join(out, "psfnet_mlp.npz"))
+        analysis = analysis_check(fit, out, fitted)
     f4, f20, depth = dfdp_net.get_flat_sample_set(args)[0]
     dof = fitted.render(f20[None, :3], -depth[None] * 1e3, None)
     print(f"render with the fitted net: {tuple(dof.shape)}, range "
@@ -1577,7 +1848,28 @@ def main():
     stack = stack_phase(dfdp_net, fused_conv, smi)
     phase("17 stack and thin lens", t)
 
-    # -- 18. result ----------------------------------------------------------
+    # -- 18. mlpconv and siren fits ----------------------------------------------
+    t = time.perf_counter()
+    heads = fit_heads_phase(fit_psfnet, fused_trace, PSFNetLens, create_train_state,
+                            make_train_step, smi)
+    phase("18 mlpconv and siren fits", t)
+
+    # -- 19. baselines -----------------------------------------------------------
+    t = time.perf_counter()
+    base = baselines_phase(PSFNetLens)
+    phase("19 baselines", t)
+
+    # -- 20. coherent demo ---------------------------------------------------------
+    t = time.perf_counter()
+    coherent = coherent_phase(Lens)
+    phase("20 coherent demo", t)
+
+    # -- 21. lens design -------------------------------------------------------------
+    t = time.perf_counter()
+    design = lens_design_phase()
+    phase("21 lens design", t)
+
+    # -- 22. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, train_stats["k2"]["max_abs_err"],
@@ -1589,11 +1881,14 @@ def main():
                 "deblur": deblur["sample_launches"] + deblur["train_launches"],
                 "stack": stack["launches"]}
     k1_err = max(v[0] for v in k1_check.values())
+    k1_paths = {"fit_analysis": k1_launches,
+                **{f"fit_{m}": v["k1_launches"] for m, v in heads.items()}}
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_trace.cu",
         "replaces": "sdirt_tpu/dp/fused_trace.py:310",
-        "launches": k1_launches, "max_abs_err": k1_err,
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+        "max_abs_err": k1_err,
         "ra_mismatches": sum(v[2] for v in k1_check.values()),
         "psf_l1_max": max(v[5] for v in k1_check.values()),
         "ms": k1_dev.get("main", k1_ms["main"]), "plain_ms": plain1_ms["main"],
@@ -1613,7 +1908,9 @@ def main():
         "variants": {"gate": variant_rows, "render": variant_stats["render"],
                      "parts_ms": variant_stats["parts_ms"],
                      "int8_trunk_card_vs_cpu": variant_stats["trunk_card_vs_cpu"]},
-        "serve_f18": f18, "farfield_ab": ab, "deblur": deblur, "stack": stack}))
+        "serve_f18": f18, "farfield_ab": ab, "deblur": deblur, "stack": stack,
+        "analysis": analysis, "fit_heads": heads, "baselines": base,
+        "coherent": coherent, "lens_design": design}))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

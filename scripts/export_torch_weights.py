@@ -16,6 +16,11 @@ second view of a multi-focus stack) and the deblur demo net with its
 Mydeblur head. Only the inference leaves are written: parameters and
 BatchNorm statistics.
 
+``psfnet_init_tree`` gives a seeded Flax initialisation of any surrogate
+architecture (``mlpconv``, ``siren``, ``mlp+lum``, ...) in the same
+layout, for nets the repository ships no checkpoint of (the port's tests
+load it into the port's modules).
+
 Usage:
   JAX_PLATFORMS=cpu python scripts/export_torch_weights.py
   JAX_PLATFORMS=cpu SDIRT_RENDER_VARIANT=scan \\
@@ -77,6 +82,19 @@ def psfnet_tree(lens="rf50mm", name="F4_PSFNet_mlp"):
                            kernel_size=ks)
     surrogate.load_net(os.path.join(ROOT, "ckpt", lens, name))
     return _flat(surrogate.params["params"], "params")
+
+
+def psfnet_init_tree(model: str, ks: int, seed: int = 0):
+    """A surrogate architecture's Flax initialisation under PRNGKey(seed),
+    flat, as the port's load_state takes it."""
+    import jax
+    import jax.numpy as jnp
+
+    from sdirt_tpu.psfnet.arch import build_psfnet
+
+    params = build_psfnet(model, ks).init(jax.random.PRNGKey(seed),
+                                          jnp.zeros((1, 3), jnp.float32))
+    return _flat(params["params"], "params")
 
 
 def depthnet_tree(lens="rf50mm", name="Sdirt_best_acc1"):

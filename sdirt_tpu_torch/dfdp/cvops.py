@@ -1,4 +1,5 @@
-"""The four OpenCV calls of the synthetic scene generator, in numpy.
+"""The OpenCV calls of the synthetic scene generator and of the
+Learn2Reduce baseline kernels, in numpy.
 
 The JAX package's ``SyntheticRGBD`` draws its textures with ``cv2.blur``,
 ``cv2.resize`` (INTER_LINEAR and INTER_CUBIC, float32, upscaling) and
@@ -13,7 +14,9 @@ so this module reproduces OpenCV's own arithmetic for exactly those uses:
     order of OpenCV's 4-lane vector loop, the tail columns in scalar order;
   * ``line``: the 8-connected Bresenham line, and for thickness 2 the
     fixed-point polygon fill of the line's rectangle plus radius-1 round
-    caps.
+    caps;
+  * ``circle_filled`` and ``gaussian_blur`` (float64, an explicit sigma)
+    for psfnet/related_psf.py's Butterworth kernels.
 
 They are bit-equal to OpenCV's portable code (tests/test_torch_synthetic.py).
 OpenCV builds with Intel IPP route ``resize`` through IPP, whose results
@@ -51,6 +54,23 @@ def blur(img: np.ndarray, ksize) -> np.ndarray:
     rows = sum(p[:, j:j + w] for j in range(k))
     cols = sum(rows[i:i + h] for i in range(k))
     return (cols * (1.0 / (k * k))).astype(_F)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (k, k), sigma) of a 2-D float64 array with
+    sigma > 0: OpenCV's kernel exp(-x^2 / (2 sigma^2)) times the reciprocal
+    of its sum, applied along the rows, then the columns, BORDER_REFLECT_101."""
+    x = np.arange(ksize) - (ksize - 1) * 0.5
+    kern = np.exp((-0.5 / (sigma * sigma)) * x * x)
+    total = 0.0
+    for t in kern:
+        total += t
+    kern = kern * (1.0 / total)
+    a = ksize // 2
+    h, w = img.shape
+    p = img.astype(np.float64)[_reflect101(h, a, a)][:, _reflect101(w, a, a)]
+    rows = sum(kern[j] * p[:, j:j + w] for j in range(ksize))
+    return sum(kern[i] * rows[i:i + h] for i in range(ksize))
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +315,9 @@ def _fill_convex_poly(img, pts, value):
             break
 
 
-def _circle_filled(img, cx, cy, radius, value):
-    """OpenCV's filled integer circle (Circle with fill=1)."""
+def circle_filled(img, cx, cy, radius, value):
+    """cv2.circle(img, (cx, cy), radius, value, -1): OpenCV's filled
+    integer circle (Circle with fill=1), in place."""
     h, w = img.shape[:2]
     err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
     while dx >= dy:
@@ -343,6 +364,6 @@ def line(img: np.ndarray, pt1, pt2, color: float, thickness: int = 1):
                                 (p1[0] + dpx, p1[1] + dpy)], color)
     radius = (half + (XY_ONE >> 1)) >> XY_SHIFT
     for p in (p0, p1):
-        _circle_filled(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT,
+        circle_filled(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT,
                        (p[1] + (XY_ONE >> 1)) >> XY_SHIFT, radius, color)
     return img

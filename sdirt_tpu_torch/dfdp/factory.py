@@ -8,7 +8,7 @@ one lies beside the name. A config's lens is a surrogate lens, optionally
 re-stopped (``fnum``) and refocused (``focus_mm``), a thin lens
 (``lens: thinlens``) or a multi-focus stack (``stack``: per-view
 sub-configs). The NYU, FlyingThings3D and Middlebury loaders are not ported
-yet (ROADMAP.md §1 item 5): the training mix is ``Synthetic`` only.
+yet (ROADMAP.md §1 item 1): the training mix is ``Synthetic`` only.
 
 Unlike the JAX factory, which builds an untrained surrogate when the named
 checkpoint is missing, the port raises (ROADMAP.md §3).
@@ -94,7 +94,7 @@ def get_flat_sample_set(args):
     return CanonFlatSet(args["real_flat_sample"], resize=args["res"])
 
 
-NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 5: it "
+NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 1: it "
                    "waits for such data in the repository); use 'Synthetic'")
 
 

@@ -4,7 +4,7 @@ refined depth's acc1..3 and, where an all-in-focus ground truth exists, the
 deblurred image's PSNR and SSIM are accumulated too.
 
 ``save_images`` (the visualisation dump) is not ported yet (ROADMAP.md §1
-item 6).
+item 2).
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ class ResultsMonitor:
     def save_images(self, result_img_dir, scene, idx):
         raise NotImplementedError(
             "ResultsMonitor.save_images is not ported yet (ROADMAP.md §1 "
-            "item 6)")
+            "item 2)")
 
     def logging(self, epoch, num_scene):
         s = self.sums

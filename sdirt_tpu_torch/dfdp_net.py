@@ -32,9 +32,9 @@ scan, fused, fused_int8, basis, basis_int8), else the port's default
 ``fused_int8``. Matrix products and convolutions run in full f32 (TF32 off).
 The evaluation stages write ``DPimages/res.csv`` (flat scores: PSNR, SSIM
 and the weight-free perceptual distance per view) and ``depth.csv`` under
-``--out``. Not ported yet (ROADMAP.md §1): ``--save-images`` (item 6),
-``--data-parallel`` (item 7), and the NYU/FlyingThings3D/Middlebury training
-sets (item 5).
+``--out``. Not ported yet (ROADMAP.md §1): ``--save-images`` (item 2),
+``--data-parallel`` (item 3), and the NYU/FlyingThings3D/Middlebury training
+sets (item 1).
 """
 
 from __future__ import annotations
@@ -217,7 +217,7 @@ def train(args, device="cuda") -> dict:
     run from its loader's start to its last loss on the host."""
     if args.get("data_parallel"):
         raise NotImplementedError(NOT_PORTED.format(what="data-parallel training",
-                                                    item=7))
+                                                    item=3))
     train_mode = args.get("train_mode", "dfdp")
     dev = resolve_device(device)
     wd = StallWatchdog(timeout_s=float(args.get("stall_timeout_s", 1800)))
@@ -462,11 +462,11 @@ def main(argv=None) -> dict:
                     help="'deblur' adds the Mydeblur refinement head and its "
                          "depth_fix / aif loss terms")
     ap.add_argument("--data-parallel", action="store_true",
-                    help=NOT_PORTED.format(what="data-parallel training", item=7))
+                    help=NOT_PORTED.format(what="data-parallel training", item=3))
     cli = ap.parse_args(argv)
     if cli.data_parallel:
         raise NotImplementedError(NOT_PORTED.format(what="--data-parallel",
-                                                    item=7))
+                                                    item=3))
     resolve_device(cli.device)
     args = load_config(cli.config)
     out = cli.out or ("./results/" + datetime.now().strftime("%m%d-%H%M%S")

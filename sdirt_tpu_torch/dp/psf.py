@@ -3,8 +3,9 @@ sdirt_tpu/dp/psf.py): point sources -> pupil samples -> trace -> chief-ray
 centre -> DP split -> splat -> max-normalised L/R PSFs.
 
 ``dp_psf`` traces with the differentiable per-surface trace
-(optics/surfaces.py); ``dp_psf_fused`` with K1 (dp/fused_trace.py), the
-trace the fit uses. Both draw the chief bundle first and then the main one
+(optics/surfaces.py), or, given the lens's static description, with the
+specialised value-only trace; ``dp_psf_fused`` with K1 (dp/fused_trace.py),
+the trace the fit uses. Both draw the chief bundle first and then the main one
 from a ``torch.Generator``, or take the pupil samples explicitly
 (``pupil_chief`` on the shrunken pupil, ``pupil_main`` on the full one,
 [n, 2] mm): the JAX code splits one key into the two, which no torch
@@ -17,7 +18,7 @@ import torch
 
 from ..core.constants import GEO_SPP, WAVE_RGB
 from ..optics.sampling import sample_from_points
-from ..optics.surfaces import trace_rays
+from ..optics.surfaces import trace_rays, trace_rays_specialized
 from .splat import DPParams, dp_split_weights, forward_integral, splat_matmul
 
 
@@ -38,8 +39,10 @@ def _max_norm(p):
 def dp_psf(stack, eta, skip, points_norm, generator, scalars, *, spp: int,
            ks: int, spp_chief: int = GEO_SPP, center: bool = True,
            dp_params: DPParams = DPParams(), chunk: int = 2048,
-           pupil_main=None, pupil_chief=None):
-    """DP PSFs of normalised point sources through the per-surface trace.
+           pupil_main=None, pupil_chief=None, static_desc=None):
+    """DP PSFs of normalised point sources through the per-surface trace,
+    or the specialised one when ``static_desc`` (Lens.static_desc()) is
+    given.
 
     points_norm: [N, 3], x, y in [-1, 1] (sensor-normalised) and z = depth
     in mm (negative). scalars: lens_scalars(lens). Returns (psf_l, psf_r)
@@ -51,6 +54,8 @@ def dp_psf(stack, eta, skip, points_norm, generator, scalars, *, spp: int,
     d_sensor = scalars["d_sensor"]
 
     def trace(r):
+        if static_desc is not None:
+            return trace_rays_specialized(r, static_desc, eta).propagate_to(d_sensor)
         return trace_rays(r, stack, eta, skip).propagate_to(d_sensor)
 
     if center:
@@ -130,26 +135,33 @@ def lens_scalars(lens) -> dict:
 
 def compute_psf(lens, points_norm, generator=None, spp: int = GEO_SPP,
                 ks: int = 31, wvln: float = 0.589, center: bool = True,
-                dp_params: DPParams = DPParams(), both: bool = False):
+                dp_params: DPParams = DPParams(), both: bool = False,
+                pupils=(None, None)):
     """PSFs of one lens at one wavelength through the per-surface trace:
-    the LEFT PSF [N, ks, ks], or the (L, R) pair when both=True."""
+    the LEFT PSF [N, ks, ks], or the (L, R) pair when both=True. pupils:
+    (pupil_main, pupil_chief) as dp_psf takes them, drawn from
+    ``generator`` where None."""
     if generator is None:
         generator = torch.Generator(device=lens.device).manual_seed(0)
     eta, skip = lens.eta_arrays(wvln, True)
     points = torch.as_tensor(points_norm, dtype=torch.float32, device=lens.device)
     psf_l, psf_r = dp_psf(lens.stack, eta, skip, points, generator,
                           lens_scalars(lens), spp=spp, ks=ks, center=center,
-                          dp_params=dp_params)
+                          dp_params=dp_params, pupil_main=pupils[0],
+                          pupil_chief=pupils[1])
     return (psf_l, psf_r) if both else psf_l
 
 
 def compute_psf_rgb(lens, points_norm, generator=None, spp: int = GEO_SPP,
                     ks: int = 31, center: bool = True,
-                    dp_params: DPParams = DPParams()):
+                    dp_params: DPParams = DPParams(), pupils=None):
     """RGB PSF stack [N, 3, ks, ks], one wavelength after another from one
-    generator."""
+    generator; pupils: one (pupil_main, pupil_chief) pair per wavelength
+    (WAVE_RGB order), or None to draw them all."""
     if generator is None:
         generator = torch.Generator(device=lens.device).manual_seed(0)
+    pupils = [(None, None)] * len(WAVE_RGB) if pupils is None else pupils
     psfs = [compute_psf(lens, points_norm, generator, spp=spp, ks=ks, wvln=w,
-                        center=center, dp_params=dp_params) for w in WAVE_RGB]
+                        center=center, dp_params=dp_params, pupils=pp)
+            for w, pp in zip(WAVE_RGB, pupils)]
     return torch.stack(psfs, dim=-3)

@@ -12,11 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.constants import DEFAULT_WAVE, GEO_SPP
+from ..core.constants import DEFAULT_WAVE, EPSILON, GEO_SPP
 from ..core.rays import Rays
 from ..utils.device import resolve_device
 from . import sampling
-from .surfaces import KIND_STOP, static_surface_desc, trace_rays
+from .surfaces import KIND_STOP, SurfaceStack, static_surface_desc, trace_rays
+
+# the module, for the method whose argument is named sampling
+_sampling = sampling
 
 
 class Lens:
@@ -50,6 +53,16 @@ class Lens:
         self.prepare_sensor(sensor_res)
         self.post_computation()
 
+    def load_external(self, stack, materials, r_last, d_sensor):
+        """Take a surface stack, its materials, r_last and d_sensor as given
+        (no sensor set-up, no post_computation)."""
+        self.stack = stack
+        self.materials = materials
+        self.r_last = r_last
+        self.d_sensor = d_sensor
+        self._pupil_cache = {}
+        self._eta_cache = {}
+
     def prepare_sensor(self, sensor_res=(512, 512), sensor_size=(24.0, 36.0)):
         """Full-frame 24x36 mm sensor by default."""
         if isinstance(sensor_res, int):
@@ -82,6 +95,17 @@ class Lens:
                 self.aper_idx = i
                 return
 
+    def find_diff_surf(self) -> list:
+        """The surfaces lens design may change: all but the aperture stop."""
+        n = self.stack.num_surfaces
+        if self.aper_idx is None:
+            return list(range(n))
+        return [i for i in range(n) if i != self.aper_idx]
+
+    @property
+    def surface_count(self) -> int:
+        return self.stack.num_surfaces
+
     # ------------------------------------------------------------------
     # Refraction ratios
     # ------------------------------------------------------------------
@@ -108,17 +132,40 @@ class Lens:
         _, skip = self.eta_arrays(DEFAULT_WAVE, True)
         return static_surface_desc(self.stack, skip)
 
+    def n_in_array(self, wvln: float = DEFAULT_WAVE, forward: bool = True):
+        """Per-surface index of the incidence medium [S] f32 on the lens's
+        device (for coherent OPL accumulation)."""
+        n = np.array([m.ior(wvln) for m in self.materials], np.float32)
+        return torch.from_numpy(n[:-1] if forward else n[1:]).to(self.device)
+
     # ------------------------------------------------------------------
     # Tracing
     # ------------------------------------------------------------------
-    def trace(self, rays: Rays, wvln: float = DEFAULT_WAVE, forward: bool = True) -> Rays:
-        """Trace rays through all surfaces (backward: in reverse order)."""
+    def trace(self, rays: Rays, wvln: float = DEFAULT_WAVE, forward: bool = True,
+              lens_range=None, record: bool = False):
+        """Trace rays through all surfaces (backward: in reverse order), or
+        through the surfaces of ``lens_range`` only. record=True returns
+        (rays, o [S, ..., 3], ra [S, ...]) after every surface traced
+        ((rays, None, None) for an empty range)."""
+        stack = self.stack
         eta, skip = self.eta_arrays(wvln, forward)
-        return trace_rays(rays, self.stack, eta, skip, forward=forward)
+        if lens_range is not None:
+            idx = torch.as_tensor(list(lens_range), dtype=torch.int64,
+                                  device=self.device)
+            if idx.numel() == 0:
+                return (rays, None, None) if record else rays
+            stack = SurfaceStack(*(a[idx] for a in (stack.c, stack.k, stack.ai,
+                                                    stack.d, stack.r, stack.kind)))
+            eta, skip = eta[idx], skip[idx]
+        return trace_rays(rays, stack, eta, skip, forward=forward, record=record)
 
     def trace2sensor(self, rays: Rays, wvln: float = DEFAULT_WAVE) -> Rays:
         """Forward trace, then propagate to the sensor plane."""
         return self.trace(rays, wvln=wvln, forward=True).propagate_to(self.d_sensor)
+
+    def trace2obj(self, rays: Rays, depth: float, wvln: float = DEFAULT_WAVE) -> Rays:
+        """Forward trace, then propagate to the plane z = depth."""
+        return self.trace(rays, wvln=wvln, forward=True).propagate_to(depth)
 
     # ------------------------------------------------------------------
     # Pupils (paraxial)
@@ -201,6 +248,15 @@ class Lens:
     def calc_efl(self) -> float:
         return float(self.r_last / np.tan(self.hfov))
 
+    def calc_eqfl(self) -> float:
+        """35 mm-equivalent focal length."""
+        return float(21.63 / np.tan(self.hfov))
+
+    def calc_bfl(self, wvln=DEFAULT_WAVE) -> float:
+        """Back focal length: the sensor's distance from the back principal
+        plane."""
+        return float(self.d_sensor - self.calc_principal(wvln)[1])
+
     def calc_principal(self, wvln=DEFAULT_WAVE):
         """Front / back principal plane positions."""
         m = 32
@@ -218,6 +274,35 @@ class Lens:
             z = out.o[..., 2].cpu().numpy() - out.d[..., 2].cpu().numpy() * t
             out_planes.append(float(np.nanmean(z[ra > 0])))
         return tuple(out_planes)
+
+    def calc_scale_pinhole(self, depth):
+        """Pinhole magnification reciprocal at a depth."""
+        return -depth * np.tan(self.hfov) / self.r_last
+
+    def calc_magnification3(self, depth, generator=None, draws=None):
+        """Ray-traced magnification from a 21 x 21 grid of point sources at
+        ``depth`` (512 stratified pupil samples each, drawn from
+        ``generator``, seed 42 by default, or the given ``draws``)."""
+        m, spp = 21, 512
+        if generator is None and draws is None:
+            generator = torch.Generator(device=self.device).manual_seed(42)
+        rays = self.sample_point_source(depth=depth, R=-depth * np.tan(self.hfov) * 0.5,
+                                        M=m, spp=spp, generator=generator, draws=draws)
+        o1 = np.flip(rays.o.cpu().numpy()[..., :2], (1, 2))
+        rays = self.trace(rays)
+        o2 = rays.project_to(self.d_sensor).cpu().numpy()
+        ra = rays.ra.cpu().numpy()
+        x2 = (o2[..., 0] * ra).sum(0) / (ra.sum(0) + EPSILON)
+        x1 = o1[0, :, :, 0]
+        mag_x = x1 / x2
+        tmp = mag_x[: m // 2, : m // 2]
+        mag = 1.0 / float(np.mean(tmp[~np.isnan(tmp)]))
+        if mag == 0:
+            return 1.0 / self.calc_scale_pinhole(depth)
+        return mag
+
+    def calc_scale_ray(self, depth, generator=None, draws=None):
+        return 1.0 / self.calc_magnification3(depth, generator, draws)
 
     # ------------------------------------------------------------------
     # Refocus
@@ -262,6 +347,111 @@ class Lens:
         focus_p = (oz - dz * t)[ra > 0]
         focus_p = focus_p[~np.isnan(focus_p) & (focus_p < 0)]
         return float(np.mean(focus_p))
+
+    def refocus_inf(self):
+        """Focus to infinity with an axial parallel beam."""
+        r0 = float(self.stack.r[0])
+        rays = self.trace(sampling.sample_parallel_2d(R=r0 * 0.5, M=GEO_SPP, z=0.0,
+                                                      device=self.device))
+        dx, dy, dz = (rays.d[..., i].cpu().numpy() for i in range(3))
+        ox, oy, oz = (rays.o[..., i].cpu().numpy() for i in range(3))
+        ra = rays.ra.cpu().numpy()
+        t = (dx * ox + dy * oy) / (dx ** 2 + dy ** 2)
+        focus_p = (oz - dz * t)[ra > 0]
+        focus_p = focus_p[~np.isnan(focus_p) & (focus_p > 0)]
+        d_sensor_new = float(np.mean(focus_p))
+        assert d_sensor_new > 0, "sensor position is negative."
+        self.d_sensor = d_sensor_new
+        self.post_computation()
+
+    # ------------------------------------------------------------------
+    # Sampling helpers bound to this lens
+    # ------------------------------------------------------------------
+    def sample_from_points(self, points, spp: int = 256, shrink_pupil=False,
+                           generator=None, xy=None) -> Rays:
+        """spp rays per point through the entrance pupil, [spp, N]."""
+        pupilz, pupilr = self.entrance_pupil(shrink_pupil=shrink_pupil)
+        points = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        return sampling.sample_from_points(points, spp, pupilz, pupilr, generator, xy)
+
+    def sample_from_points_grid(self, points, M: int = 256) -> Rays:
+        """Regular pupil-grid quadrature, [M*M, N] (coherent integration)."""
+        pupilz, pupilr = self.entrance_pupil()
+        points = torch.as_tensor(points, dtype=torch.float32, device=self.device)
+        return sampling.sample_from_points_grid(points, M, pupilz, pupilr)
+
+    def sample_point_source(self, depth=-10.0, R=None, M=11, spp=16,
+                            generator=None, draws=None) -> Rays:
+        """An M x M grid of point sources at ``depth`` spanning R (height)
+        and R W / H (width), with stratified pupil-aimed rays, [spp, M, M]
+        (sampling.sample_pupil_stratified's ``generator`` or ``draws``)."""
+        if R is None:
+            R = float(self.stack.r[0])
+        Rw = R * self.sensor_res[1] / self.sensor_res[0]
+        x, y = np.meshgrid(np.linspace(-1, 1, M), np.linspace(1, -1, M), indexing="xy")
+        o = np.stack([x * Rw, y * R, np.full_like(x, depth)], axis=-1).astype(np.float32)
+        o = torch.from_numpy(o).to(self.device)[None].expand(spp, M, M, 3)
+        pupilz, pupilr = self.entrance_pupil()
+        o2 = sampling.sample_pupil_stratified((M, M), spp, pupilr, pupilz,
+                                              generator=generator, draws=draws,
+                                              device=self.device)
+        return Rays.create(o, o2 - o)
+
+    def sample_parallel(self, fov_deg: float = 0.0, M: int = 15,
+                        sampling: str = "grid", forward: bool = True,
+                        generator=None, xy=None) -> Rays:
+        """Parallel rays over the entrance pupil, moved back to the first
+        surface's plane."""
+        pupilz, pupilr = self.entrance_pupil()
+        z0 = float(self.stack.d[0])
+        return _sampling.sample_parallel(fov_deg, M, pupilz, pupilr, sampling=sampling,
+                                         forward=forward, z=z0, generator=generator,
+                                         xy=xy, device=self.device)
+
+    def sample_sensor(self, spp: int = 64, generator=None, draws=None) -> Rays:
+        """Backward rays from the sensor pixels through the exit pupil,
+        [spp, H, W]."""
+        pupilz, pupilr = self.exit_pupil()
+        return sampling.sample_sensor(self.sensor_res, self.sensor_size, self.d_sensor,
+                                      spp, pupilz, pupilr, generator=generator,
+                                      draws=draws, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Pruning
+    # ------------------------------------------------------------------
+    def prune_surf(self, outer=None):
+        """Set each changeable surface's clear radius from where a 21-ray
+        fan at the edge of the field crosses it (plus ``outer``, 5% of
+        r_last by default), no wider than the next surface where the glass
+        gets denser, than the conic's height or than r_last."""
+        outer = self.r_last * 0.05 if outer is None else outer
+        surface_range = self.find_diff_surf()
+        r_np = self.stack.r.detach().cpu().numpy().copy()
+        r_np[surface_range] = self.r_last
+        self.stack = self.stack.replace(r=torch.from_numpy(r_np).to(self.device))
+
+        view = self.hfov if self.hfov is not None else np.arctan(self.r_last / self.d_sensor)
+        rays = sampling.sample_parallel_2d(view=float(np.rad2deg(view)), M=21,
+                                           pupil=self.entrance_pupil(),
+                                           device=self.device)
+        _, os_, _ = self.trace(rays, record=True)
+        os_ = os_.cpu().numpy()                       # [S, M, 3]
+        for i in surface_range:
+            hit = np.abs(os_[i, :, 0])
+            if hit.size:
+                r_np[i] = hit.max() + outer
+        for i in surface_range[:-1]:
+            if self.materials[i].n_d < self.materials[i + 1].n_d:
+                r_np[i] = min(r_np[i], r_np[i + 1])
+        c_np = self.stack.c.detach().cpu().numpy()
+        k_np = self.stack.k.detach().cpu().numpy()
+        for i in surface_range:
+            if k_np[i] > -1 and c_np[i] != 0:
+                max_h = np.sqrt(1 / (k_np[i] + 1) / c_np[i] ** 2) - 0.01
+            else:
+                max_h = 100.0
+            r_np[i] = min(r_np[i], min(max_h, self.r_last))
+        self.stack = self.stack.replace(r=torch.from_numpy(r_np).to(self.device))
 
     # ------------------------------------------------------------------
     # Aperture, IO

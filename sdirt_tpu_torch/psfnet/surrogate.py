@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -22,6 +23,7 @@ import torch
 from ..core.constants import D_SENSOR, DMAX, DMIN, GEO_SPP
 from ..dp.psf import compute_psf
 from ..optics.lens import Lens
+from ..utils.png import write_png
 from ..utils.weights import flax_to_torch, load_npz, torch_to_flax
 from .arch import build_psfnet
 
@@ -112,10 +114,13 @@ class PSFNetLens(Lens):
 
     def load_net(self, path: str):
         """Load an exported ``.npz`` tree (scripts/export_torch_weights.py,
-        or ``save_net``). A tree that does not match this net's layers is
+        or ``save_net``), or a reference PyTorch ``.pkl`` state dict
+        (_load_pkl). A tree that does not match this net's layers is
         merged leaf by leaf where name and shape agree (how a basis student
         warm-starts its trunk from a PSFMLP of the same width); one that
         shares no such leaf raises."""
+        if path.endswith(".pkl") and os.path.exists(path):
+            return self._load_pkl(path)
         if not path.endswith(".npz") or not os.path.exists(path):
             raise FileNotFoundError(f"no exported surrogate at {path}")
         stored = flax_to_torch(load_npz(path))
@@ -132,6 +137,26 @@ class PSFNetLens(Lens):
                              "checkpoint?")
         self.net.load_state_dict({**own, **{k: stored[k] for k in hits}})
         logging.info(f"partial net load: {len(hits)}/{len(own)} leaves from {path}")
+        return self
+
+    def _load_pkl(self, path: str):
+        """A reference MLP checkpoint (a PyTorch state dict of Linear layers
+        ``<prefix>.<i>.weight`` / ``.bias``): its layers, in the order of
+        i, go into this net's Dense layers in order, each leaf only where
+        its shape matches."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        order = lambda kv: int(kv[0].split(".")[-2])
+        weights = sorted(((k, v) for k, v in sd.items() if k.endswith("weight")), key=order)
+        biases = sorted(((k, v) for k, v in sd.items() if k.endswith("bias")), key=order)
+        own = self.net.state_dict()
+        dense = sorted({k.rsplit(".", 1)[0] for k in own if k.startswith("Dense_")},
+                       key=lambda m: int(m.split("_")[1]))
+        new = dict(own)
+        for (_, w), (_, b), m in zip(weights, biases, dense):
+            for leaf, v in (("weight", w), ("bias", b)):
+                if own[f"{m}.{leaf}"].shape == v.shape:
+                    new[f"{m}.{leaf}"] = v.float()
+        self.net.load_state_dict(new)
         return self
 
     def save_net(self, path: str):
@@ -163,16 +188,56 @@ class PSFNetLens(Lens):
                          **render_kw)
 
     # -----------------------------------------------------------------
-    # Fit-quality evaluation
+    # Timing and fit-quality evaluation
     # -----------------------------------------------------------------
     @torch.no_grad()
-    def compare_psf(self, spp=GEO_SPP * 100, generator=None, save_path=None):
+    def time_compare_psf(self, n_points: int = 512 * 768 // 16,
+                         spp: int = GEO_SPP * 2, log_fn=print):
+        """Ray-traced PSFs against network inference for the same point
+        count: seconds of the per-surface trace of n_points x spp rays (in
+        chunks of 1024 points, which bounds the memory) and of one
+        128 x 192 network query. On the card both are timed with CUDA
+        events. Returns (t_rt, t_net) in seconds."""
+        chunk = 1024
+        rng = np.random.default_rng(0)
+        pts = np.stack([rng.uniform(-1, 1, n_points), rng.uniform(-1, 1, n_points),
+                        -(rng.uniform(0, 1, n_points) * 19800 + 200)],
+                       -1).astype(np.float32)
+        inp = rng.uniform(0, 1, (1, 128, 192, 3)).astype(np.float32)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+
+        def timed(fn):
+            if self.device.type == "cuda":
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            t0 = time.perf_counter()
+            fn()
+            return time.perf_counter() - t0
+
+        t_rt = timed(lambda: [self.psf(pts[i:i + chunk], spp=spp, generator=gen)
+                              for i in range(0, n_points, chunk)])
+        log_fn(f"ray_tracing time cost: {t_rt:.3f}s "
+               f"({n_points * spp / t_rt / 1e6:.1f} Mrays/s)")
+        t_net = timed(lambda: self.pred(inp))
+        log_fn(f"network time cost: {t_net:.3f}s")
+        return t_rt, t_net
+
+    @torch.no_grad()
+    def compare_psf(self, spp=GEO_SPP * 100, generator=None, save_path=None,
+                    save_dir=None):
         """Ray-traced vs predicted DP PSFs at the field points 0, 0.4, 0.8
         and the depths -500 and -20000 mm.
 
         Returns {'traced': [2 depths, 2 views, 3 fields, ks, ks],
         'pred': [2 depths, 3 fields, 2 views, ks, ks], 'depths'} as numpy,
-        also written to ``save_path`` (.npz) when given.
+        also written to ``save_path`` (.npz) when given. With ``save_dir``
+        each (depth, field) also gets its panel as a grey PNG,
+        ``compare_<depth>_v0{0,4,8}.png``: traced left | right on top, the
+        prediction below, each PSF scaled to its maximum.
         """
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -194,4 +259,11 @@ class PSFNetLens(Lens):
         out["depths"] = np.array(out["depths"], np.float32)
         if save_path is not None:
             np.savez(save_path, **out)
+        if save_dir is not None:
+            for di, d0 in enumerate(out["depths"]):
+                for vi, tag in enumerate(["v00", "v04", "v08"]):
+                    rows = [np.concatenate([p / (p.max() + 1e-9) for p in row], axis=1)
+                            for row in (out["traced"][di, :, vi], out["pred"][di, vi])]
+                    write_png(f"{save_dir}/compare_{int(d0)}_{tag}.png",
+                              np.concatenate(rows, axis=0))
         return out

@@ -2,9 +2,12 @@
 of sdirt_tpu/psfnet/train.py).
 
 Every step draws field points around a focus setting, traces their DP PSFs
-as ground truth (``dp_psf_fused``: K1 on the card, its plain version on the
-CPU) and takes one AdamW step of the MLP on the squared error. The traced
-PSF carries no gradient; only the MLP is differentiated.
+as ground truth and takes one AdamW step of the net on the squared error.
+The traced PSF carries no gradient; only the net is differentiated. The
+trace is chosen by ``SDIRT_TRACE``: ``fused`` (the default: K1 through
+``dp_psf_fused``, its plain version on the CPU), ``scan`` (the
+per-surface trace of ``dp_psf``) or ``specialized`` (``dp_psf`` with the
+lens's static description). A name the port does not know raises.
 
 The fit trains ``lens.net`` in place (the JAX code copies the parameters
 into a train state and writes them back at every checkpoint and at the end;
@@ -15,13 +18,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
 
 from ..dp.fused_trace import make_fused_plan
-from ..dp.psf import dp_psf_fused, lens_scalars
+from ..dp.psf import compute_psf_rgb, dp_psf, dp_psf_fused, lens_scalars
+from ..optics.sampling import point_source_grid
 from ..utils.checkpoint import TrainCheckpointer
+from .arch import resize_linear
+
+TRACE_MODES = ("fused", "scan", "specialized")
 
 # optax.adamw's defaults, set explicitly (torch's weight decay is 1e-2)
 ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
@@ -94,11 +102,35 @@ def fit_step(state: PSFNetTrainState, inp, psf_gt):
     return loss.detach()
 
 
+def trace_mode() -> str:
+    """The supervision's trace: ``SDIRT_TRACE``, ``fused`` when unset."""
+    mode = os.environ.get("SDIRT_TRACE", "fused")
+    if mode not in TRACE_MODES:
+        raise ValueError(f"SDIRT_TRACE={mode!r}: one of {TRACE_MODES}")
+    return mode
+
+
+def make_psf_fn(lens):
+    """psf_fn(points, generator, spp, ks, chunk) -> the left DP PSFs
+    [N, ks, ks] (max-normalised) of the lens's points through the trace
+    that trace_mode() names."""
+    mode = trace_mode()
+    scalars = lens_scalars(lens)
+    if mode == "fused":
+        plan = make_fused_plan(lens)
+        return lambda pts, gen, spp, ks, chunk: dp_psf_fused(
+            pts, gen, scalars, plan, spp=spp, ks=ks, chunk=chunk)[0]
+    eta, skip = lens.eta_arrays(0.589, True)
+    desc = lens.static_desc() if mode == "specialized" else None
+    return lambda pts, gen, spp, ks, chunk: dp_psf(
+        lens.stack, eta, skip, pts, gen, scalars, spp=spp, ks=ks, chunk=chunk,
+        static_desc=desc)[0]
+
+
 def make_train_step(lens, *, bs: int, spp: int, ks: int):
     """The sample + trace + fit step of a PSFNetLens: step(state, generator)
-    -> loss. The ground truth is dp_psf_fused (K1), left view."""
-    plan = make_fused_plan(lens)
-    scalars = lens_scalars(lens)
+    -> loss. The ground truth is the left view of make_psf_fn's trace."""
+    psf_fn = make_psf_fn(lens)
     foc_z_arr, d_min, d_max = lens.foc_z_arr, lens.d_min, lens.d_max
 
     def train_step(state: PSFNetTrainState, generator):
@@ -106,8 +138,7 @@ def make_train_step(lens, *, bs: int, spp: int, ks: int):
         inp, points = training_points(*samples, foc_z_arr, d_min, d_max)
         inp, points = inp.to(lens.device), points.to(lens.device)
         with torch.no_grad():
-            psf_gt, _ = dp_psf_fused(points, generator, scalars, plan,
-                                     spp=spp, ks=ks)
+            psf_gt = psf_fn(points, generator, spp, ks, 2048)
         return fit_step(state, inp, psf_gt)
 
     return train_step
@@ -142,18 +173,16 @@ def eval_loss(pred, psf_gt):
 
 def make_eval_fn(lens, *, bs: int = 1024, spp: int = 65536, ks: int = 21):
     """Held-out L1 / L2: eval_fn(net, generator) -> (l1, l2) 0-d tensors.
-    The points go through dp_psf_fused in chunks of 128 (ray chunk 8192 in
-    the splat), one generator draw after another."""
-    plan = make_fused_plan(lens)
-    scalars = lens_scalars(lens)
+    The points go through make_psf_fn's trace in chunks of 128 (ray chunk
+    8192 in the splat), one generator draw after another."""
+    psf_fn = make_psf_fn(lens)
     inp, points = (torch.from_numpy(a).to(lens.device) for a in eval_points(lens, bs))
     cbs = bs if bs <= 128 or bs % 128 else 128
 
     @torch.no_grad()
     def eval_fn(net, generator):
-        psf_gt = torch.cat([
-            dp_psf_fused(points[i:i + cbs], generator, scalars, plan, spp=spp,
-                         ks=ks, chunk=8192)[0] for i in range(0, bs, cbs)])
+        psf_gt = torch.cat([psf_fn(points[i:i + cbs], generator, spp, ks, 8192)
+                            for i in range(0, bs, cbs)])
         return eval_loss(net(inp).reshape(bs, ks, ks), psf_gt)
 
     return eval_fn
@@ -200,3 +229,37 @@ def fit_psfnet(lens, iters: int = 10000, bs: int = 128, lr: float = 1e-4,
         lens.save_net(f"{result_dir}/psfnet_{lens.model_name}.npz")
     return {"losses": [float(v) for v in losses], "evals": evals, "start": start}
 
+
+
+@torch.no_grad()
+def get_training_psf_map(lens, generator=None, bs: int = 8, psf_grid=(11, 11),
+                         psf_map_size=(128, 128), spp: int = 2048, draws=None):
+    """PSF-map training batches (for map-predicting nets): depths drawn
+    around a random focus setting, a grid of RGB PSFs traced per depth,
+    tiled into a map and resized (jax.image.resize's antialiased linear).
+
+    draws: (focus index, the depth normals [bs]), drawn from ``generator``
+    when None. Returns (inp [bs, 2] = (z, foc_z), maps [bs, 3, H, W]).
+    """
+    if draws is None:
+        dev = generator.device
+        draws = (int(torch.randint(0, len(lens.foc_z_arr), (), generator=generator,
+                                   device=dev)),
+                 torch.randn(bs, generator=generator, device=dev))
+    idx, g = draws
+    foc_z = float(np.asarray(lens.foc_z_arr)[idx])
+    g = torch.clamp(torch.as_tensor(g, dtype=torch.float32), -3, 3)
+    z = torch.where(g > 0, (1 - foc_z) * g / 3 + foc_z, foc_z * g / 3 + foc_z)
+    depth = z * (lens.d_max - lens.d_min) + lens.d_min
+    inp = torch.stack([z, torch.full_like(z, foc_z)], -1)
+    gh, gw = psf_grid
+    ks = lens.kernel_size
+    maps = []
+    for i in range(bs):
+        pts = point_source_grid(depth=float(depth[i]), grid=max(gh, gw),
+                                center=True)[:gh, :gw].reshape(-1, 3)
+        psfs = compute_psf_rgb(lens, pts, generator, spp=spp, ks=ks)
+        m = psfs.reshape(gh, gw, 3, ks, ks).permute(2, 0, 3, 1, 4)
+        m = m.reshape(1, 3, gh * ks, gw * ks)
+        maps.append(resize_linear(m, psf_map_size)[0])
+    return inp, torch.stack(maps)

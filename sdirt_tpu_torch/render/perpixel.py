@@ -47,3 +47,12 @@ def local_dp_conv(img, psf, ks: int, mirror_right: bool = False):
             acc_l += patch * k_l[..., None]
             acc_r += patch * k_r[..., None]
     return acc_l, acc_r
+
+
+def uniform_psf_conv(img, psf, ks: int):
+    """The same PSF at every pixel: a depthwise convolution with reflect
+    padding. img: [N, H, W, C]; psf: [C, ks, ks]. Returns [N, H, W, C]."""
+    pad = (ks - 1) // 2
+    x = F.pad(img.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    kern = torch.flip(psf, dims=(-1, -2))[:, None].to(img.dtype)
+    return F.conv2d(x, kern, groups=img.shape[-1]).permute(0, 2, 3, 1)

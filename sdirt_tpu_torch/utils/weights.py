@@ -11,7 +11,11 @@ name; only the leaves change:
   Conv kernel HWIO / DHWIO                -> Conv.weight OIHW / OIDHW
   ConvTranspose kernel (D)HWIO, SAME pad  -> ConvTranspose.weight I O (D)HW,
                                              spatially flipped (Flax applies
-                                             it unflipped to the dilated input)
+                                             it unflipped to the dilated input;
+                                             at stride 1 that is a plain
+                                             correlation, which torch's
+                                             ConvTranspose2d(padding=1) computes
+                                             with the flipped kernel: MLPConv)
   BatchNorm scale / bias / mean / var     -> weight / bias / running_mean /
                                              running_var
   any other parameter (CAMModule's gamma) -> the parameter of that name

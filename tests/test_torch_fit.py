@@ -212,7 +212,5 @@ def test_fit_psfnet_slice_end_to_end(tmp_path, monkeypatch):
 
 
 def test_fit_psfnet_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="analysis"):
-        fit_psfnet.main(["--device", "cpu", "--result-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="mesh"):
         fit_psfnet.main(["--device", "cpu", "--skip-analysis", "--mesh", "1", "2"])

@@ -27,7 +27,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "configs", "dfdp_by_sdirt_rf50mm.yml")
 CROP = (slice(192, 320), slice(288, 480))      # 128x192 window of 512x768
 FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "optax", "cv2", "PIL",
-             "pandas", "sdirt_tpu"}
+             "pandas", "matplotlib", "sdirt_tpu"}
 
 
 class Cropped:
@@ -151,6 +151,22 @@ def test_import_guard_covers_the_configs_slice():
     assert set(CONFIGS_SLICE) <= files
 
 
+# the modules of the optics slice (lens analysis, coherent PSFs, lens
+# design, baselines)
+OPTICS_SLICE = ("core/rays.py", "optics/sampling.py", "optics/surfaces.py",
+                "optics/lens.py", "optics/analysis.py", "optics/optimize.py",
+                "dp/psf.py", "dp/coherent.py", "utils/png.py", "psfnet/arch.py",
+                "psfnet/surrogate.py", "psfnet/train.py", "psfnet/related_psf.py",
+                "psfnet/baselines.py", "render/perpixel.py", "fit_psfnet.py",
+                "coherent_demo.py", "demo_lens_design.py")
+
+
+def test_import_guard_covers_the_optics_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(OPTICS_SLICE) <= files
+
+
 AB_ARMS = ["--arm", "f4", "ckpt/rf50mm/Sdirt_f4_farfield",
            "ckpt/rf50mm/F4_PSFNet_mlp", "21", "--val-len", "1"]
 
@@ -217,10 +233,16 @@ def test_entry_points_default_to_the_card(fn):
 
 
 def test_fit_entry_point_defaults_to_the_card():
+    from sdirt_tpu_torch import coherent_demo, demo_lens_design
+
     assert fit_psfnet.parse_args([]).device == "cuda"
+    assert coherent_demo.parse_args([]).device == "cuda"
+    assert demo_lens_design.parse_args([]).device == "cuda"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
+    from sdirt_tpu_torch import coherent_demo, demo_lens_design
+
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     monkeypatch.chdir(ROOT)
@@ -234,7 +256,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
              lambda: dfdp_net.main(["--stage", "full", "--config", CONFIG]),
              lambda: dfdp_net.train(args),
              lambda: Lens("lenses/rf35mm/lens_web.json"),
-             lambda: fit_psfnet.main(["--skip-analysis", "--iters", "0"])]
+             lambda: fit_psfnet.main(["--skip-analysis", "--iters", "0"]),
+             lambda: fit_psfnet.main(["--iters", "0"]),
+             lambda: coherent_demo.main([]),
+             lambda: demo_lens_design.main([])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
