@@ -115,7 +115,30 @@ Phases, each printing its elapsed seconds:
  21. lens design: ``demo_lens_design.main()`` at its defaults on the JAX
      package's draws, its three RMS tables and RECOVERY OK held against
      sdirt_tpu_torch/reference/lens_design_jax_cpu.npz, ms per step;
- 22. the kernels line, then the card's name and power limit, then the
+ 22. published training: ``--stage train --save-images`` through
+     dfdp_net.main() on configs/dfdp_by_sdirt_rf50mm.yml at its width
+     (512x768, bs 4, ks 21, lr 1e-4, F4_PSFNet_mlp, warm start
+     Sdirt_best_acc1), its roots pointed at the committed NYU tree
+     (sdirt_tpu_torch/reference/datasets/nyu2_train) and FlyingThings3D
+     trees written here at 960x540 (4 train, 2 validation scenes), cut in
+     length only (3 epochs, each training set cut to 2 steps by step_view,
+     the per-epoch real box evaluation to one scene):
+     finite losses, K2 once per step and validation item, the
+     FlyingThings3D mix in epochs 0-1 and NYU alone in epoch 2, the saved
+     images present with the JET maps at 512x768; per step the data wait,
+     render and step ms and max_memory_allocated; the host ms of one JPEG
+     decode and one EXR read;
+ 23. depth-side tools through their main(): eval_depth_ckpt (512x768,
+     --val-len 2, every style and the real sets; acc1 and MAE within 0.005,
+     one K2 launch per synthetic render), dp_disparity_probe (surrogate:
+     within 0.01 px; --traced at 200 000 rays: K1 held against its plain
+     version at that shape first (PSF L1, as phase 5), then K1 twice per
+     depth, each disparity and sigma within 5x the JAX run's largest
+     difference between two key pairs) and finetune_real_loo --steps 2
+     --sets box (finite losses; zero-shot acc1, held-out acc1 and MAE
+     within 0.005), against sdirt_tpu_torch/reference/depth_tools_jax_cpu.json;
+     each tool's seconds;
+ 24. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -129,6 +152,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -219,6 +243,17 @@ NEW_TRAIN_CUTS = {"epochs": 1, "synthetic_val_len": 2}
 THIN_LENS = dict(foc_len=50.0, fnum=1.8, kernel_size=21, sensor_size=[24.0, 36.0])
 # the same f32 arithmetic on both devices, the taps summed in the same order
 THIN_TOL = 1e-5
+REAL_CONFIG = "configs/dfdp_by_sdirt_rf50mm.yml"
+NYU_TREE = "sdirt_tpu_torch/reference/datasets/nyu2_train"
+# cut in length only: 3 epochs run both halves of the schedule (the first
+# half, epochs 0-1, on the NYU + 2x FlyingThings3D mix); each training set
+# is cut to REAL_STEPS steps by step_view
+REAL_CUTS = {"epochs": 3}
+REAL_STEPS = 2
+FT3D_SCENES = {"FlyingThings3D_train": 4, "FlyingThings3D_test": 2}
+FT3D_RES = (540, 960)
+PROBE_TOL_PX = 0.01
+PROBE_SPP = 200_000             # dp_disparity_probe --traced's rays per point
 
 T0 = time.perf_counter()
 
@@ -1489,6 +1524,306 @@ def lens_design_phase():
     return out
 
 
+def step_view(mix, n):
+    """A training mix cut to ``n`` items for a short run: item k is item
+    k // P of the mix's part k % P (P parts), by its index in the mix.
+    Counts the parts it served (``served``)."""
+    from sdirt_tpu_torch.dfdp.datasets import Subset
+
+    class StepView(Subset):
+        def __getitem__(self, i, rng=None):
+            with self.lock:             # the loader's workers are threads
+                self.served[self.kinds[i]] += 1
+            return super().__getitem__(i, rng)
+
+    starts = np.cumsum([0] + [len(d) for d in mix.datasets])
+    parts = len(mix.datasets)
+    view = StepView(mix, [int(starts[k % parts]) + k // parts for k in range(n)])
+    view.kinds = [type(mix.datasets[k % parts]).__name__ for k in range(n)]
+    view.served, view.lock = collections.Counter(), threading.Lock()
+    return view
+
+
+def write_ft3d_tree(root, n, seed):
+    """n FlyingThings3D scenes at 960x540 in the published layout: AiF.png
+    (the port's PNG writer) and disp.exr = depth x 20 (its EXR writer, ZIP),
+    from seeded SyntheticRGBD v5 scenes."""
+    from sdirt_tpu_torch.dfdp.datasets import SyntheticRGBD
+    from sdirt_tpu_torch.io.exr import write_exr
+    from sdirt_tpu_torch.utils.png import write_png
+
+    ds = SyntheticRGBD(FT3D_RES, length=n, seed=seed, train=False, style="v5")
+    for i in range(n):
+        aif, depth = ds[i]
+        scene = os.path.join(root, f"{i:04d}")
+        os.makedirs(scene)
+        write_png(os.path.join(scene, "AiF.png"), aif.transpose(1, 2, 0))
+        write_exr(os.path.join(scene, "disp.exr"), depth[0] * 20.0, compression="zip")
+    return root
+
+
+def real_data_phase(dfdp_net, fused_conv, smi):
+    """Phase 22: --stage train on the published configuration
+    (configs/dfdp_by_sdirt_rf50mm.yml) at its width, its dataset roots
+    pointed at the committed NYU tree and written FlyingThings3D trees."""
+    from sdirt_tpu_torch.dfdp.datasets import NYUData, read_png
+    from sdirt_tpu_torch.io.exr import read_exr
+    from sdirt_tpu_torch.io.jpeg import read_jpeg
+
+    out = {}
+    jpg = sorted(NYUData(NYU_TREE).imgs)[0]
+    read_jpeg(jpg)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        read_jpeg(jpg)
+    out["jpeg_decode_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {k: write_ft3d_tree(os.path.join(tmp, k), n, 11 + i)
+                 for i, (k, n) in enumerate(FT3D_SCENES.items())}
+        exr = os.path.join(roots["FlyingThings3D_train"], "0000", "disp.exr")
+        read_exr(exr)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            read_exr(exr)
+        out["exr_read_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"host decode (numpy): one 640x480 JPEG (q95, 4:2:0) "
+              f"{out['jpeg_decode_ms']:.1f} ms, one 960x540 float EXR (ZIP) "
+              f"{out['exr_read_ms']:.1f} ms")
+        real = {f"real_{k}_test": f"./real_sample_set/{k}" for k in ("flat", "casual")}
+        # the per-epoch real box evaluation, cut to its first scene: a box
+        # scene's 4000x6000 depth PNG takes seconds to decode on the host
+        box = os.path.join(tmp, "box")
+        os.makedirs(box)
+        first_box = sorted(os.listdir("real_sample_set/box"))[0]
+        os.symlink(os.path.join(ROOT, "real_sample_set", "box", first_box),
+                   os.path.join(box, first_box))
+        real["real_box_test"] = box
+        cfg_path, cfg = cut_config(REAL_CONFIG, tmp, **REAL_CUTS, **roots, **real,
+                                   NYUdata_train=NYU_TREE)
+        full = dfdp_net.load_config(REAL_CONFIG)
+        print(f"published training: {REAL_CONFIG} at {cfg['res'][0]}x{cfg['res'][1]}, bs "
+              f"{cfg['bs']}, ks {cfg['ks']}, lr {cfg['lr']}, surrogate "
+              f"{cfg['train']['psfnet_path']}, warm start "
+              f"{cfg['train']['dfdpnet_pretrained']}; datasets NYUdata (the committed "
+              f"2 x 4 tree) + FlyingThings3D ({FT3D_SCENES}, {FT3D_RES[1]}x{FT3D_RES[0]}, "
+              f"written here); cut in length only: {REAL_CUTS} (the config's: "
+              f"{ {k: full[k] for k in REAL_CUTS} }), each training set cut to "
+              f"{REAL_STEPS} steps by step_view, the per-epoch real box set to its "
+              f"first scene ({first_box})")
+        views = []
+        get_dataset, train_step = dfdp_net.get_dataset, dfdp_net.dfdp_train_step
+        step_mem = []
+
+        def cut_dataset(args):
+            first, second, val = get_dataset(args)
+            views[:] = [step_view(first, REAL_STEPS * args["bs"]),
+                        step_view(second, REAL_STEPS * args["bs"])]
+            return views[0], views[1], val
+
+        def measured_step(*a, **k):
+            losses = train_step(*a, **k)
+            step_mem.append(torch.cuda.max_memory_allocated() / 2**30)
+            return losses
+
+        dfdp_net.get_dataset, dfdp_net.dfdp_train_step = cut_dataset, measured_step
+        fused_conv.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        results = os.path.join(tmp, "results")
+        t0 = time.perf_counter()
+        try:
+            res = dfdp_net.main(["--stage", "train", "--config", cfg_path, "--device",
+                                 "cuda", "--out", results, "--save-images"])
+        finally:
+            dfdp_net.get_dataset, dfdp_net.dfdp_train_step = get_dataset, train_step
+        out["main_s"] = time.perf_counter() - t0
+        out["k2_launches"] = fused_conv.launches
+        n_val = FT3D_SCENES["FlyingThings3D_test"]
+        epochs = REAL_CUTS["epochs"]
+        want = epochs * REAL_STEPS + (epochs + 1) * n_val
+        losses = np.array(res["losses"])
+        print(f"K2 launches on the published training: {out['k2_launches']} ({epochs} "
+              f"epochs x {REAL_STEPS} steps + {epochs + 1} validations x {n_val} items "
+              f"= {want})")
+        if len(losses) != epochs * REAL_STEPS or out["k2_launches"] != want:
+            raise RuntimeError("the published training did not launch K2 once per step "
+                               "and validation item")
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"non-finite training loss: {losses}")
+        first, second = (dict(v.served) for v in views)
+        print(f"items served: first-half mix (epochs 0-{epochs // 2}) {first}; "
+              f"second half (epoch {epochs - 1}) {second}")
+        n_items = REAL_STEPS * cfg["bs"]
+        if (first.get("FlyingThings3D", 0) == 0 or sum(first.values()) != 2 * n_items
+                or set(second) != {"NYUData"} or sum(second.values()) != n_items):
+            raise RuntimeError("the FlyingThings3D mix was not used in epochs 0-1 and "
+                               "NYU alone in epoch 2")
+        for i, (s_, mem) in enumerate(zip(res["steps"], step_mem)):
+            print(f"  step {i}: data wait {s_['data_wait_s'] * 1e3:.1f} ms, render "
+                  f"{s_['render_ms']:.3f} ms, train step {s_['train_step_ms']:.3f} ms, "
+                  f"max_memory_allocated {mem:.2f} GiB, loss {losses[i]:.6f}")
+        steps = res["steps"]
+        out.update(losses=losses.tolist(), max_memory_allocated_gib=max(step_mem),
+                   data_wait_ms=mean_after_first([s_["data_wait_s"] * 1e3 for s_ in steps]),
+                   render_ms=mean_after_first([s_["render_ms"] for s_ in steps]),
+                   train_step_ms=mean_after_first([s_["train_step_ms"] for s_ in steps]),
+                   epoch_seconds=res["epoch_seconds"], items_served=[first, second])
+        print(f"published training per step (mean after the first): data wait "
+              f"{out['data_wait_ms']:.1f} ms, render {out['render_ms']:.3f} ms, train "
+              f"step {out['train_step_ms']:.3f} ms; epochs {np.round(res['epoch_seconds'], 3).tolist()} "
+              f"s; validation acc1 {[round(v['acc1'], 4) for v in res['val']]}; main() "
+              f"{out['main_s']:.1f} s ({smi})")
+        saved = sorted(os.listdir(os.path.join(results, "results")))
+        tests = sorted(os.listdir(os.path.join(results, "tests")))
+        want_files = [f"fs_{i}_{n}.png" for i in range(n_val) for n in (
+            "rgb_gt_aif", "rgb_rt_l", "rgb_rt_r", "depth_gt", "depth_est")]
+        missing = [f for f in want_files if f not in saved]
+        missing += [f for f in ("box_0_rgb_gt_l.png", "box_0_depth_est.png") if f not in tests]
+        jet = [read_png(os.path.join(results, "results", f"fs_0_{n}.png")).shape
+               for n in ("depth_gt", "depth_est")]
+        print(f"--save-images: {len(saved)} files under results/, {len(tests)} under "
+              f"tests/; JET depth maps decode to {jet}")
+        if missing or jet != [(*cfg["res"], 3)] * 2:
+            raise RuntimeError(f"--save-images files missing or misshapen: {missing} {jet}")
+    return out
+
+
+def k1_vs_plain_probe(dp_disparity_probe, fused_trace):
+    """K1 against its plain version at dp_disparity_probe --traced's
+    shape: its lens refocused to 1 m, the point and its mirror at each of
+    its depths, 200 000 main and GEO_SPP chief rays per point, the same
+    pupil samples through both. Returns the PSFs' L1 (mean, max)."""
+    from sdirt_tpu_torch.core.constants import GEO_SPP
+    from sdirt_tpu_torch.dp.psf import dp_psf_fused, lens_scalars
+    from sdirt_tpu_torch.optics.sampling import sample_disk
+    from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+
+    lens = PSFNetLens("lenses/rf50mm/lens_web.json", kernel_size=KS, sensor_res=(512, 768),
+                      device="cuda")
+    lens.refocus(-1000.0 + lens.d_sensor)
+    plan, sc = fused_trace.make_fused_plan(lens), lens_scalars(lens)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xy_main = sample_disk(gen, (PROBE_SPP,), sc["pupilr"], "cuda")
+    xy_chief = sample_disk(gen, (GEO_SPP,), sc["pupilr"] * 0.25, "cuda")
+    l1 = []
+    with torch.no_grad():
+        for d_m in dp_disparity_probe.DEPTHS:
+            depth_mm = -d_m * 1e3 + lens.d_sensor
+            pts = torch.tensor([[0.0, 0.0, depth_mm], [-0.0, 0.0, depth_mm]], device="cuda")
+            psfs = [dp_psf_fused(pts, None, sc, plan, spp=PROBE_SPP, ks=KS,
+                                 pupil_main=xy_main, pupil_chief=xy_chief, trace=trace)
+                    for trace in (None, fused_trace.fused_trace_sensor_ref)]
+            l1 += [(a - b).abs().mean((-1, -2)) for a, b in zip(*psfs)]
+    l1 = torch.cat(l1)
+    l1_mean, l1_max = float(l1.mean()), float(l1.max())
+    print(f"K1 vs plain at the traced probe's shape ({len(dp_disparity_probe.DEPTHS)} "
+          f"depths x 2 points x {PROBE_SPP} rays, focus 1 m), PSFs via dp_psf_fused: "
+          f"L1 mean {l1_mean:.3e}, max {l1_max:.3e} (tolerances {PSF_L1_MEAN_TOL}, "
+          f"{PSF_L1_MAX_TOL})")
+    if not (l1_mean <= PSF_L1_MEAN_TOL and l1_max <= PSF_L1_MAX_TOL):
+        raise RuntimeError("K1's PSFs disagree with the plain version's at the probe's shape")
+    return {"l1_mean": l1_mean, "l1_max": l1_max}
+
+
+def depth_tools_phase(fused_conv, fused_trace):
+    """Phase 23: the depth-side tools through their main(), held against
+    sdirt_tpu_torch/reference/depth_tools_jax_cpu.json."""
+    from sdirt_tpu_torch import dp_disparity_probe, eval_depth_ckpt, finetune_real_loo
+
+    with open(os.path.join(REF_DIR, "depth_tools_jax_cpu.json")) as f:
+        ref = json.load(f)
+    out, failed = {"seconds": {}}, []
+    t0 = time.perf_counter()
+    fused_conv.launches = 0
+    res = eval_depth_ckpt.main(["--ckpt", "ckpt/rf50mm/Sdirt_best_acc1", "--val-len", "2",
+                                "--device", "cuda"])
+    out["seconds"]["eval_depth_ckpt"] = time.perf_counter() - t0
+    out["eval_k2_launches"] = fused_conv.launches
+    rows = {**res["synthetic"], **{f"real {k}": v for k, v in res["real"].items()}}
+    tol = ref["eval_depth_ckpt"]["tolerance"]
+    for k, want in ref["eval_depth_ckpt"]["rows"].items():
+        d = {m: rows[k][m] - want[m] for m in ("acc1", "mae")}
+        print(f"eval_depth_ckpt [{k}]: acc1 {rows[k]['acc1']:.4f} mae {rows[k]['mae']:.4f} "
+              f"(JAX CPU {want['acc1']:.4f} / {want['mae']:.3f}; diff {d['acc1']:+.4f} / "
+              f"{d['mae']:+.4f}, tolerance {tol})")
+        if not all(abs(v) <= tol for v in d.values()):
+            failed.append(f"eval_depth_ckpt {k}")
+    n_synth = len(eval_depth_ckpt.STYLES) * 2
+    print(f"K2 launches in eval_depth_ckpt: {out['eval_k2_launches']} (one per synthetic "
+          f"render: {n_synth})")
+    if out["eval_k2_launches"] != n_synth:
+        failed.append("eval_depth_ckpt K2 launches")
+    out["eval_depth_ckpt"] = rows
+
+    t0 = time.perf_counter()
+    rows = dp_disparity_probe.main(["--device", "cuda"])
+    out["seconds"]["probe"] = time.perf_counter() - t0
+    for r, want in zip(rows, ref["probe"]["rows"]):
+        d = (r["disparity_px"] - want["disparity_px"], r["sigma_px"] - want["sigma_px"])
+        if not max(abs(v) for v in d) <= PROBE_TOL_PX:
+            failed.append(f"probe {r['depth_m']} m")
+    worst = max(max(abs(r["disparity_px"] - w["disparity_px"]),
+                    abs(r["sigma_px"] - w["sigma_px"]))
+                for r, w in zip(rows, ref["probe"]["rows"]))
+    print(f"dp_disparity_probe (surrogate): worst |diff| from the JAX CPU run {worst:.2e} px "
+          f"(tolerance {PROBE_TOL_PX})")
+    out["probe"] = rows
+
+    out["probe_k1_vs_plain"] = k1_vs_plain_probe(dp_disparity_probe, fused_trace)
+    t0 = time.perf_counter()
+    fused_trace.launches = 0
+    rows = dp_disparity_probe.main(["--device", "cuda", "--traced"])
+    out["seconds"]["probe_traced"] = time.perf_counter() - t0
+    out["probe_k1_launches"] = fused_trace.launches
+    tr = ref["probe_traced"]
+    # sigma is held by the disparity's rule: 5x the largest difference of a
+    # depth's sigma between the JAX run's two key pairs
+    sigma_tol = 5 * max(abs(a["sigma_px"] - b["sigma_px"])
+                        for a, b in zip(tr["rows_keys01"], tr["rows_keys23"]))
+    for r, a, b in zip(rows, tr["rows_keys01"], tr["rows_keys23"]):
+        d = r["disparity_px"] - (a["disparity_px"] + b["disparity_px"]) / 2
+        ds = r["sigma_px"] - (a["sigma_px"] + b["sigma_px"]) / 2
+        print(f"  traced {r['depth_m']:.2f} m: disparity {r['disparity_px']:+.4f} px, sigma "
+              f"{r['sigma_px']:.4f} px (JAX CPU {a['disparity_px']:+.4f} / "
+              f"{b['disparity_px']:+.4f}, sigma {a['sigma_px']:.4f} / {b['sigma_px']:.4f}; "
+              f"diff from their mean {d:+.4f} / {ds:+.4f}, tolerances "
+              f"{tr['tolerance_px']:.4f} / {sigma_tol:.4f})")
+        if not (abs(d) <= tr["tolerance_px"] and abs(ds) <= sigma_tol):
+            failed.append(f"probe traced {r['depth_m']} m")
+    want_k1 = 2 * len(rows)
+    print(f"K1 launches in dp_disparity_probe --traced: {out['probe_k1_launches']} "
+          f"(chief + main bundle per depth: {want_k1})")
+    if out["probe_k1_launches"] != want_k1:
+        failed.append("probe K1 launches")
+    out["probe_traced"] = rows
+
+    t0 = time.perf_counter()
+    res = finetune_real_loo.main(["--ckpt", "ckpt/rf50mm/Sdirt_best_acc1", "--steps", "2",
+                                  "--sets", "box", "--device", "cuda"])
+    out["seconds"]["finetune_real_loo"] = time.perf_counter() - t0
+    losses = np.array(res["fold_losses"])
+    print(f"finetune_real_loo --steps 2 --sets box: {len(losses)} folds, losses "
+          f"{losses.round(6).tolist()}; LOO {res['summary']}")
+    if not np.isfinite(losses).all():
+        failed.append("finetune losses")
+    for fold in ref["finetune_real_loo"]["folds"]:
+        i = fold["scene"]
+        got_zs, got_ho = res["zero_shot"][i], res["held_out"][i]
+        d = (got_zs[0] - fold["zero_shot_acc1"], got_ho[0] - fold["acc1"],
+             got_ho[1] - fold["mae"])
+        print(f"  box/{i}: zero-shot acc1 {got_zs[0]:.4f} (JAX CPU "
+              f"{fold['zero_shot_acc1']:.4f}, diff {d[0]:+.4f}); held-out acc1 "
+              f"{got_ho[0]:.4f} mae {got_ho[1]:.4f} (JAX CPU {fold['acc1']:.4f} / "
+              f"{fold['mae']:.3f}, diff {d[1]:+.4f} / {d[2]:+.4f}; tolerance {DEPTH_TOL})")
+        if not max(abs(v) for v in d) <= DEPTH_TOL:
+            failed.append(f"finetune box/{i}")
+    out["finetune"] = {"fold_losses": losses.tolist(), "summary": res["summary"]}
+    print("depth tools, seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                               out["seconds"].items()))
+    if failed:
+        raise RuntimeError(f"the depth-side tools are off the JAX reference: {failed}")
+    return out
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -1869,7 +2204,17 @@ def main():
     design = lens_design_phase()
     phase("21 lens design", t)
 
-    # -- 22. result ----------------------------------------------------------
+    # -- 22. the published configuration's training ---------------------------------
+    t = time.perf_counter()
+    real = real_data_phase(dfdp_net, fused_conv, smi)
+    phase("22 published training", t)
+
+    # -- 23. the depth-side tools ------------------------------------------------------
+    t = time.perf_counter()
+    tools = depth_tools_phase(fused_conv, fused_trace)
+    phase("23 depth-side tools", t)
+
+    # -- 24. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, train_stats["k2"]["max_abs_err"],
@@ -1879,10 +2224,12 @@ def main():
                 "fused_int8": k2_int8, "serve_rf35mm": launches35,
                 "serve_f18": f18["launches"], "farfield_ab": ab["launches"],
                 "deblur": deblur["sample_launches"] + deblur["train_launches"],
-                "stack": stack["launches"]}
+                "stack": stack["launches"], "published_train": real["k2_launches"],
+                "eval_depth_ckpt": tools["eval_k2_launches"]}
     k1_err = max(v[0] for v in k1_check.values())
     k1_paths = {"fit_analysis": k1_launches,
-                **{f"fit_{m}": v["k1_launches"] for m, v in heads.items()}}
+                **{f"fit_{m}": v["k1_launches"] for m, v in heads.items()},
+                "disparity_probe_traced": tools["probe_k1_launches"]}
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_trace.cu",
@@ -1890,7 +2237,8 @@ def main():
         "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
         "max_abs_err": k1_err,
         "ra_mismatches": sum(v[2] for v in k1_check.values()),
-        "psf_l1_max": max(v[5] for v in k1_check.values()),
+        "psf_l1_max": max([v[5] for v in k1_check.values()]
+                          + [tools["probe_k1_vs_plain"]["l1_max"]]),
         "ms": k1_dev.get("main", k1_ms["main"]), "plain_ms": plain1_ms["main"],
         "bound_ms": k1_bound,
         "bound_by": k1_by, "library_ms": None}, {
@@ -1910,7 +2258,8 @@ def main():
                      "int8_trunk_card_vs_cpu": variant_stats["trunk_card_vs_cpu"]},
         "serve_f18": f18, "farfield_ab": ab, "deblur": deblur, "stack": stack,
         "analysis": analysis, "fit_heads": heads, "baselines": base,
-        "coherent": coherent, "lens_design": design}))
+        "coherent": coherent, "lens_design": design, "published_train": real,
+        "depth_tools": tools}))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The OpenCV calls of the synthetic scene generator and of the
-Learn2Reduce baseline kernels, in numpy.
+"""The OpenCV calls of the synthetic scene generator, of the
+Learn2Reduce baseline kernels and of the monitor's depth images, in numpy.
 
 The JAX package's ``SyntheticRGBD`` draws its textures with ``cv2.blur``,
 ``cv2.resize`` (INTER_LINEAR and INTER_CUBIC, float32, upscaling) and
@@ -16,7 +16,9 @@ so this module reproduces OpenCV's own arithmetic for exactly those uses:
     fixed-point polygon fill of the line's rectangle plus radius-1 round
     caps;
   * ``circle_filled`` and ``gaussian_blur`` (float64, an explicit sigma)
-    for psfnet/related_psf.py's Butterworth kernels.
+    for psfnet/related_psf.py's Butterworth kernels;
+  * ``apply_colormap_jet``: ``cv2.applyColorMap(u8, COLORMAP_JET)`` as its
+    256-entry table, for dfdp/monitor.py's depth images.
 
 They are bit-equal to OpenCV's portable code (tests/test_torch_synthetic.py).
 OpenCV builds with Intel IPP route ``resize`` through IPP, whose results
@@ -367,3 +369,43 @@ def line(img: np.ndarray, pt1, pt2, color: float, thickness: int = 1):
         circle_filled(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT,
                        (p[1] + (XY_ONE >> 1)) >> XY_SHIFT, radius, color)
     return img
+
+
+# OpenCV's COLORMAP_JET lookup table: the B, G, R bytes that
+# cv2.applyColorMap(u8, cv2.COLORMAP_JET) gives for the values 0..255
+# (OpenCV interpolates its Jet key points in float and rounds; the steps
+# are not a closed formula, so the 768 bytes are kept as they are).
+_JET_BGR = np.frombuffer(bytes.fromhex(
+    "8000008400008800008c00009000009400009800009c0000a00000a40000a800"
+    "00ac0000b00000b40000b80000bc0000c00000c40000c80000cc0000d00000d4"
+    "0000d80000dc0000e00000e40000e80000ec0000f00000f40000f80000fc0000"
+    "ff0000ff0400ff0800ff0c00ff1000ff1400ff1800ff1c00ff2000ff2400ff28"
+    "00ff2c00ff3000ff3400ff3800ff3c00ff4000ff4400ff4800ff4c00ff5000ff"
+    "5400ff5800ff5c00ff6000ff6400ff6800ff6c00ff7000ff7400ff7800ff7c00"
+    "ff8000ff8400ff8800ff8c00ff9000ff9400ff9800ff9c00ffa000ffa400ffa8"
+    "00ffac00ffb000ffb400ffb800ffbc00ffc000ffc400ffc800ffcc00ffd000ff"
+    "d400ffd800ffdc00ffe000ffe400ffe800ffec00fff000fff400fff800fffc00"
+    "feff02faff06f6ff0af2ff0eeeff12eaff16e6ff1ae2ff1edeff22daff26d6ff"
+    "2ad2ff2eceff32caff36c6ff3ac2ff3ebeff42baff46b6ff4ab2ff4eaeff52aa"
+    "ff56a6ff5aa2ff5e9eff629aff6696ff6a92ff6e8eff728aff7686ff7a82ff7e"
+    "7eff827aff8676ff8a72ff8e6eff926aff9666ff9a62ff9e5effa25affa656ff"
+    "aa52ffae4effb24affb646ffba42ffbe3effc23affc636ffca32ffce2effd22a"
+    "ffd626ffda22ffde1effe21affe616ffea12ffee0efff20afff606fffa01fffe"
+    "00fcff00f8ff00f4ff00f0ff00ecff00e8ff00e4ff00e0ff00dcff00d8ff00d4"
+    "ff00d0ff00ccff00c8ff00c4ff00c0ff00bcff00b8ff00b4ff00b0ff00acff00"
+    "a8ff00a4ff00a0ff009cff0098ff0094ff0090ff008cff0088ff0084ff0080ff"
+    "007cff0078ff0074ff0070ff006cff0068ff0064ff0060ff005cff0058ff0054"
+    "ff0050ff004cff0048ff0044ff0040ff003cff0038ff0034ff0030ff002cff00"
+    "28ff0024ff0020ff001cff0018ff0014ff0010ff000cff0008ff0004ff0000ff"
+    "0000fc0000f80000f40000f00000ec0000e80000e40000e00000dc0000d80000"
+    "d40000d00000cc0000c80000c40000c00000bc0000b80000b40000b00000ac00"
+    "00a80000a40000a000009c00009800009400009000008c000088000084000080"), np.uint8).reshape(256, 3)
+
+
+def apply_colormap_jet(u8: np.ndarray) -> np.ndarray:
+    """uint8 [H, W] -> [H, W, 3] uint8 B, G, R, as cv2.applyColorMap(u8,
+    cv2.COLORMAP_JET)."""
+    u8 = np.asarray(u8)
+    if u8.dtype != np.uint8 or u8.ndim != 2:
+        raise ValueError(f"apply_colormap_jet takes uint8 [H, W], got {u8.dtype} {u8.shape}")
+    return _JET_BGR[u8]

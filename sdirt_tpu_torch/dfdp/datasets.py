@@ -1,13 +1,15 @@
-"""Real Canon dual-pixel capture sets, a dependency-free PNG reader, and the
-training data side: augmentation, the procedural ``SyntheticRGBD`` scenes
-and the threaded loader (PyTorch port's counterpart of
-sdirt_tpu/dfdp/datasets.py).
+"""Real Canon dual-pixel capture sets, the RGB-D training sets (NYU,
+FlyingThings3D, Middlebury), a dependency-free PNG reader, and the training
+data side: augmentation, the procedural ``SyntheticRGBD`` scenes and the
+threaded loader (PyTorch port's counterpart of sdirt_tpu/dfdp/datasets.py).
 
-The card's machine has neither cv2 nor PIL, so PNGs are decoded here with
-``zlib`` and numpy, reproducing what the JAX package's loaders read:
+The card's machine has neither cv2 nor PIL, so images are decoded here with
+``zlib`` and numpy (JPEG by ``io/jpeg.py``, EXR by ``io/exr.py``),
+reproducing what the JAX package's loaders read:
 
   * ``read_png``: non-interlaced PNG, 8- or 16-bit grey, grey+alpha, RGB or
     RGBA, all five scanline filters; returns the stored samples (RGB order).
+  * ``read_image``: ``read_png``, or ``io/jpeg.py:read_jpeg`` for a JPEG.
   * ``load_rgb`` (``as_rgb``): as ``cv2.imread(path)`` + BGR->RGB: alpha
     dropped, grey replicated, 16-bit collapsed to 8-bit by taking the high
     byte.
@@ -20,6 +22,16 @@ The card's machine has neither cv2 nor PIL, so PNGs are decoded here with
 Samples are numpy arrays in the reference's [C, H, W] layout. The training
 side is the JAX package's numpy code, with its four OpenCV calls replaced by
 ``cvops`` (the same arithmetic), so a seed gives the same scenes.
+
+The JAX loaders draw their training-mode randomness (NYU's random frame,
+``auto_augment``, the focal-stack frames) from the global generators. The
+port's loaders are read from worker threads, so every such item takes an
+``np.random.RandomState`` of its own (``item_rng``): every set's
+``__getitem__(idx, rng=None)`` takes it, and a set that draws nothing
+ignores it. The ``DataLoader`` seeds it from its epoch seed and the item's
+index in the loader's dataset; an item read directly without one is seeded
+from its index alone. A ``RandomState`` seeded like the global one gives
+the JAX loader's draws.
 """
 
 from __future__ import annotations
@@ -34,6 +46,8 @@ from os.path import basename, dirname
 
 import numpy as np
 
+from ..io.exr import read_exr
+from ..io.jpeg import read_jpeg
 from . import cvops
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -158,14 +172,22 @@ def as_gray(samples: np.ndarray) -> np.ndarray:
         return _to8(samples)
     if samples.shape[-1] == 2:                             # grey + alpha
         return np.ascontiguousarray(_to8(samples[..., 0]))
-    r, g, b = (samples[..., i].astype(np.int64) for i in range(3))
+    r, g, b = (samples[..., i].astype(np.uint32) for i in range(3))  # sums < 2^31
     wide = samples.dtype == np.uint16
     gray = (9797 * r + 19234 * g + 3737 * b + (1 << 14 if wide else 0)) >> 15
     return (gray >> 8 if wide else gray).astype(np.uint8)
 
 
+def read_image(path: str) -> np.ndarray:
+    """The stored samples of a PNG or a baseline JPEG (by its signature),
+    colour in R, G, B order."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    return read_jpeg(path) if head == b"\xff\xd8" else read_png(path)
+
+
 def load_rgb(path: str) -> np.ndarray:
-    return as_rgb(read_png(path))
+    return as_rgb(read_image(path))
 
 
 def load_gray(path: str) -> np.ndarray:
@@ -257,10 +279,47 @@ def _resize_depth(d, resize):
     return resize_nearest(np.asarray(d, np.float32), resize)
 
 
+def _resize_rgb(img, resize):
+    """float32 [H, W, 3] -> bicubic-resized [3, H', W'] float32."""
+    return _chw(resize_bicubic(np.asarray(img, np.float32), resize))
+
+
+def item_rng(seed: int, index: int) -> np.random.RandomState:
+    """The generator of one training item's draws, from a loader's epoch
+    seed and the item's index."""
+    return np.random.RandomState((seed * 1_000_003 + index) % 2**32)
+
+
 def _require_scenes(scenes, dataset_dir, cls):
     if not scenes:
         raise FileNotFoundError(f"{cls}: no scenes found under '{dataset_dir}'")
     return scenes
+
+
+# The Canon depth sets are decoded once per process: a box scene's d.png is
+# a 24-MP RGBA PNG that read_png takes seconds to decode, and training
+# evaluates the box set every epoch. Items are kept per resolution, the
+# full-size box depth across resolutions; the keys hold the files' sizes
+# and mtimes, so a rewritten file is read again.
+_DEPTH_ITEMS: dict = {}
+_BOX_DEPTHS: dict = {}
+_KEPT_LOCK = threading.Lock()
+
+
+def _kept(cache, cap, key, load):
+    value = cache.get(key)
+    if value is None:
+        value = load()
+        with _KEPT_LOCK:
+            if len(cache) >= cap:
+                del cache[next(iter(cache))]
+            cache[key] = value
+    return value
+
+
+def _stamp(path):
+    st = os.stat(path)
+    return path, st.st_size, st.st_mtime_ns
 
 
 class CanonDepthSet:
@@ -281,13 +340,19 @@ class CanonDepthSet:
              _load_rgb_chw(f"{scene}/r.{self.file_type}", self.resize)], 0)
 
     def _raw_depth(self, scene):
-        if os.path.exists(f"{scene}/d.png"):
-            return _resize_depth(load_gray(f"{scene}/d.png") / 255.0 * 10.0,
-                                 self.resize)
+        path = f"{scene}/d.png"
+        if os.path.exists(path):
+            gray = _kept(_BOX_DEPTHS, 16, _stamp(path), lambda: load_gray(path))
+            return _resize_depth(gray / 255.0 * 10.0, self.resize)
         return np.ones(self.resize, np.float64) * 2.5
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, rng=None):
         scene = self.scenes[index]
+        key = (type(self).__name__, None if self.resize is None else tuple(self.resize),
+               *sorted(_stamp(e.path) for e in os.scandir(scene) if e.is_file()))
+        return [a.copy() for a in _kept(_DEPTH_ITEMS, 64, key, lambda: self._item(scene))]
+
+    def _item(self, scene):
         depth = self._raw_depth(scene)
         img = self._load_lr(scene)
         depth[depth < 0] = 0
@@ -337,7 +402,7 @@ class CanonFlat2DepthSet:
             [_load_rgb_chw(f"{folder}/l.{self.file_type}", self.resize),
              _load_rgb_chw(f"{folder}/r.{self.file_type}", self.resize)], 0)
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, rng=None):
         dis_m, imgp = self.dis_l[index], self.imgp_l[index]
         f4 = self._lr(f"{imgp}/f4")
         depth = np.ones(self.resize, np.float32) * dis_m
@@ -361,7 +426,7 @@ class CanonFlatSet(CanonFlat2DepthSet):
             self.dis_l.append(dis / 1000.0)
             self.imgp_l.append(dirname(dirname(p)))
 
-    def __getitem__(self, index):
+    def __getitem__(self, index, rng=None):
         dis_m, imgp = self.dis_l[index], self.imgp_l[index]
         f4 = self._lr(f"{imgp}/f4")
         f20 = self._lr(f"{imgp}/f20")
@@ -425,7 +490,132 @@ def depth_preprocess(depth):
     return depth
 
 
+class NYUData:
+    """NYUv2-style folders of (jpg rgb, png depth * 25.5) pairs, cropped by
+    20 pixels. Virtual length 2000 with a random frame per item in train
+    mode (``rng.randint``, then ``auto_augment``), 50 in eval mode."""
+
+    scale = 25.5
+    crop = 20
+
+    def __init__(self, rgb_path, resize=None, train=True):
+        self.resize = resize
+        self.train = train
+        self.imgs, self.depths = [], []
+        for scene in glob(f"{rgb_path}/*"):
+            self.imgs += sorted(glob(f"{scene}/*.jpg"))
+            self.depths += sorted(glob(f"{scene}/*.png"))
+
+    def __len__(self):
+        return 2000 if self.train else 50
+
+    def __getitem__(self, idx, rng=None):
+        if self.train:
+            rng = item_rng(0, idx) if rng is None else rng
+            idx = rng.randint(0, len(self.imgs))
+        try:
+            aif = load_rgb(self.imgs[idx]) / 255.0
+            depth = read_png(self.depths[idx]) / self.scale
+            h, w, _ = aif.shape
+            c = self.crop
+            aif = aif[c:h - c, c:w - c]
+            depth = depth[c:h - c, c:w - c]
+            assert depth[depth > 0].any()
+        except Exception:
+            return self.__getitem__((idx + 1) % len(self.imgs), rng)
+        if self.train:
+            aif, depth = auto_augment(aif, depth, rng)
+        depth = depth_preprocess(depth)
+        return [_resize_rgb(aif.astype(np.float32), self.resize),
+                _resize_depth(depth.astype(np.float32), self.resize)[None]]
+
+
+class FlyingThings3D:
+    """Scenes of AiF.png + disp.exr / 20. With fs_num > 0 an item is a
+    random focal stack of the pre-rendered frames ``<focus>.png`` (read in
+    cv2's B, G, R order, as the JAX loader reads them), the depth and the
+    focus distances; the frames are drawn by ``random.Random.sample``
+    seeded from the item's generator."""
+
+    DEPTH_FACTOR = 20.0
+
+    def __init__(self, dataset_dir, resize=None, train=True, fs_num=0):
+        self.dataset_dir = dataset_dir
+        self.scenes = [s.split("/")[-1] for s in glob(f"{dataset_dir}/*")]
+        self.resize = resize
+        self.train = train
+        self.fs_num = fs_num
+
+    def __len__(self):
+        return len(self.scenes) if self.train else min(50, len(self.scenes))
+
+    def __getitem__(self, index, rng=None):
+        rng = item_rng(0, index) if rng is None else rng
+        scene = f"{self.dataset_dir}/{self.scenes[index]}"
+        depth = read_exr(f"{scene}/disp.exr") / self.DEPTH_FACTOR
+        depth = _resize_depth(depth, self.resize)
+
+        if self.fs_num > 0:
+            stack_paths = sorted(glob(f"{scene}/*.png"))[:-1]
+            pick = random.Random(rng.randint(0, 2**31 - 1))
+            chosen = pick.sample(stack_paths, self.fs_num)
+            frames, dists = [], []
+            for path in chosen:
+                dists.append(float(path.split("/")[-1][:-4]) / self.DEPTH_FACTOR)
+                bgr = load_rgb(path)[..., ::-1].astype(np.float32) / 255.0
+                frames.append(_resize_rgb(bgr, self.resize))
+            return [np.stack(frames), depth.astype(np.float32)[None],
+                    np.asarray(dists, np.float32)]
+
+        aif = load_rgb(f"{scene}/AiF.png") / 255.0
+        if self.train:
+            aif, depth = auto_augment(aif, depth, rng)
+        depth = depth_preprocess(depth)
+        return [_resize_rgb(aif.astype(np.float32), self.resize),
+                _resize_depth(depth.astype(np.float32), self.resize)[None]]
+
+
+class Middlebury:
+    """Scenes of im0.png + depth.png (16-bit millimetres) / 1000."""
+
+    def __init__(self, dataset_dir, resize=None, train=False):
+        self.dataset_dir = dataset_dir
+        self.scenes = sorted(s.split("/")[-1] for s in glob(f"{dataset_dir}/*"))
+        self.resize = resize
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def _aif(self, scene):
+        return load_rgb(f"{self.dataset_dir}/{scene}/im0.png") / 255.0
+
+    def _depth(self, scene):
+        return read_png(f"{self.dataset_dir}/{scene}/depth.png") / 1000.0
+
+    def __getitem__(self, index, rng=None):
+        scene = self.scenes[index]
+        depth = self._depth(scene)
+        aif = self._aif(scene)
+        return [_resize_rgb(aif.astype(np.float32), self.resize),
+                _resize_depth(depth.astype(np.float32), self.resize)[None]]
+
+
+class MiddleburyFS(Middlebury):
+    """Scenes of AiF.png + disp.exr / 10, negative depths set to 0."""
+
+    def _aif(self, scene):
+        return load_rgb(f"{self.dataset_dir}/{scene}/AiF.png") / 255.0
+
+    def _depth(self, scene):
+        depth = read_exr(f"{self.dataset_dir}/{scene}/disp.exr") / 10.0
+        depth[depth < 0] = 0
+        return depth
+
+
 class ConcatDataset:
+    """The sets one after another. An item's generator (see ``item_rng``)
+    is handed to the set that serves it."""
+
     def __init__(self, *datasets):
         self.datasets = list(datasets)
         self._lens = [len(d) for d in self.datasets]
@@ -433,12 +623,26 @@ class ConcatDataset:
     def __len__(self):
         return sum(self._lens)
 
-    def __getitem__(self, idx):
+    def __getitem__(self, idx, rng=None):
         for d, n in zip(self.datasets, self._lens):
             if idx < n:
-                return d[idx]
+                return d.__getitem__(idx, rng)
             idx -= n
         raise IndexError
+
+
+class Subset:
+    """The items ``indices`` of ``dataset``, each read by its index there
+    (a set cut to a few items for a short run)."""
+
+    def __init__(self, dataset, indices):
+        self.dataset, self.indices = dataset, list(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i, rng=None):
+        return self.dataset.__getitem__(self.indices[i], rng)
 
 
 class _WorkerError:
@@ -453,7 +657,8 @@ class DataLoader:
     package's (stdlib ``random.Random(seed)`` shuffle), and batches are
     yielded in that order whatever thread finishes first: worker w builds
     batches w, w + n, ..., at most ``2 * num_workers`` ahead of the
-    consumer. A worker's exception is raised in the consumer."""
+    consumer. A worker's exception is raised in the consumer. Item j is
+    read as ``dataset.__getitem__(j, item_rng(seed, j))``."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=4,
                  drop_last=False, seed=0):
@@ -462,6 +667,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
+        self.seed = seed
         self.rng = random.Random(seed)
 
     def __len__(self):
@@ -489,7 +695,8 @@ class DataLoader:
                 if stop.is_set():
                     return
                 try:
-                    samples = [self.dataset[j] for j in batches[i]]
+                    samples = [self.dataset.__getitem__(j, item_rng(self.seed, j))
+                               for j in batches[i]]
                     item = [np.stack([s[k] for s in samples])
                             for k in range(len(samples[0]))]
                 except BaseException as exc:  # noqa: BLE001 - re-raised below
@@ -947,7 +1154,7 @@ class SyntheticRGBD:
                     dfield[y0:y0 + bh, x0:x0 + bw] if v4 else d)
         return img, depth
 
-    def __getitem__(self, idx):
+    def __getitem__(self, idx, rng=None):
         rng = np.random.default_rng(self.seed * 100003 + idx)
         h, w = self.resize
         if self.style == "v6":

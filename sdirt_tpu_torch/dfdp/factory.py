@@ -7,11 +7,16 @@ their exported copies, ``sdirt_tpu_torch/weights/<lens>/<name>.npz``
 one lies beside the name. A config's lens is a surrogate lens, optionally
 re-stopped (``fnum``) and refocused (``focus_mm``), a thin lens
 (``lens: thinlens``) or a multi-focus stack (``stack``: per-view
-sub-configs). The NYU, FlyingThings3D and Middlebury loaders are not ported
-yet (ROADMAP.md §1 item 1): the training mix is ``Synthetic`` only.
+sub-configs).
+
+The training mix is the JAX factory's: NYU (or FlyingThings3D) with two
+passes of FlyingThings3D for the first half of the epochs, the training set
+twice for the second half; ``Synthetic`` trains on one set throughout.
 
 Unlike the JAX factory, which builds an untrained surrogate when the named
-checkpoint is missing, the port raises (ROADMAP.md §3).
+checkpoint is missing, the port raises; and a dataset root that holds no
+files raises FileNotFoundError naming its config key, where the JAX loaders
+fail later, inside their first item (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from __future__ import annotations
 import os
 
 from .datasets import (CanonCasualSet, CanonDepthSet, CanonFlat2DepthSet,
-                       CanonFlatSet, ConcatDataset, SyntheticRGBD)
+                       CanonFlatSet, ConcatDataset, FlyingThings3D, Middlebury,
+                       MiddleburyFS, NYUData, SyntheticRGBD)
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "weights")
@@ -94,24 +100,52 @@ def get_flat_sample_set(args):
     return CanonFlatSet(args["real_flat_sample"], resize=args["res"])
 
 
-NOT_PORTED_DATA = ("the {} loader is not ported yet (ROADMAP.md §1 item 1: it "
-                   "waits for such data in the repository); use 'Synthetic'")
+def _rooted(cls, key, args, **kw):
+    """``cls`` over the tree at ``args[key]``; raises FileNotFoundError
+    naming the key when the tree holds none of the set's files."""
+    ds = cls(args[key], resize=args["res"], **kw)
+    if not getattr(ds, "imgs", None) and not getattr(ds, "scenes", None):
+        raise FileNotFoundError(
+            f"{key}: no {cls.__name__} files under '{args[key]}' (point the "
+            "config's dataset root at a local copy in the published layout)")
+    return ds
+
+
+_TRAIN_SETS = {"FlyingThings3D": (FlyingThings3D, "FlyingThings3D_train"),
+               "NYUdata": (NYUData, "NYUdata_train")}
+_TEST_SETS = {"Middlebury2014": (Middlebury, "Middlebury2014_val"),
+              "Middlebury2021": (Middlebury, "Middlebury2021_val"),
+              "Middlebury_FS": (MiddleburyFS, "Middlebury_FS"),
+              "FlyingThings3D": (FlyingThings3D, "FlyingThings3D_test"),
+              "NYUdata": (NYUData, "NYUdata_test")}
 
 
 def get_dataset(args):
     """(first-half training set, second-half training set, validation set).
-    The ``Synthetic`` mix trains on one set throughout."""
+    The real mixes are (train set, FlyingThings3D, FlyingThings3D) and
+    (train set, train set); the ``Synthetic`` mix trains on one set
+    throughout. Another dataset name raises NotImplementedError."""
     res = args["res"]
     name, tname = args["train"]["dataset"], args["test"]["dataset"]
-    for n in (name, tname):
-        if n != "Synthetic":
-            raise NotImplementedError(NOT_PORTED_DATA.format(n))
+    for n, known in ((name, _TRAIN_SETS), (tname, _TEST_SETS)):
+        if n != "Synthetic" and n not in known:
+            raise NotImplementedError(n)
     style = args.get("synthetic_style", "v1")
-    train_set = SyntheticRGBD(resize=res, length=args.get("synthetic_len", 64),
-                              style=style)
-    val_set = SyntheticRGBD(resize=res, length=args.get("synthetic_val_len", 4),
-                            seed=999, train=False, style=style)
-    return ConcatDataset(train_set), ConcatDataset(train_set), val_set
+    if name == "Synthetic":
+        train_set = SyntheticRGBD(resize=res, length=args.get("synthetic_len", 64),
+                                  style=style)
+    else:
+        train_set = _rooted(*_TRAIN_SETS[name], args)
+    if tname == "Synthetic":
+        val_set = SyntheticRGBD(resize=res, length=args.get("synthetic_val_len", 4),
+                                seed=999, train=False, style=style)
+    else:
+        val_set = _rooted(*_TEST_SETS[tname], args, train=False)
+    if name == "Synthetic":
+        return ConcatDataset(train_set), ConcatDataset(train_set), val_set
+    fly = _rooted(FlyingThings3D, "FlyingThings3D_train", args)
+    return (ConcatDataset(train_set, fly, fly), ConcatDataset(train_set, train_set),
+            val_set)
 
 
 def get_depth_test_set(args):

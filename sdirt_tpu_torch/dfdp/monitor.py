@@ -1,19 +1,25 @@
 """Depth-metric accumulation and the per-split checkpoint policy (PyTorch
 port's counterpart of sdirt_tpu/dfdp/monitor.py). In ``deblur`` mode the
 refined depth's acc1..3 and, where an all-in-focus ground truth exists, the
-deblurred image's PSNR and SSIM are accumulated too.
-
-``save_images`` (the visualisation dump) is not ported yet (ROADMAP.md §1
-item 2).
+deblurred image's PSNR and SSIM are accumulated too. ``save_images`` writes
+a frame's views and depth maps as PNG files, as the JAX monitor writes them
+with OpenCV.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 
+from ..utils.png import write_png
 from . import metrics as M
+from .cvops import apply_colormap_jet
+
+# set_outputs' keys of the RGB views save_images writes, and their names
+IMAGE_VIEWS = (("gt_aif", "rgb_gt_aif"), ("gt_l", "rgb_gt_l"), ("gt_r", "rgb_gt_r"),
+               ("rt_render_l", "rgb_rt_l"), ("rt_render_r", "rgb_rt_r"))
 
 DEPTH_METRICS = ("abs_rel", "sq_rel", "mse", "mae", "rmse", "rmse_log",
                  "acc1", "acc2", "acc3")
@@ -51,15 +57,19 @@ class ResultsMonitor:
         """outputs: "gt_depth" and "pred_depth_est" in metres, any shape
         that squeezes to [H, W]; in deblur mode also "pred_depth_fix"
         (metres) and "pred_aif" [1, 3, H, W], and "gt_aif" [1, 3, H, W] or
-        None (the real capture sets have no all-in-focus truth)."""
+        None (the real capture sets have no all-in-focus truth). The RGB
+        views that save_images writes ("gt_aif", "gt_l", "gt_r",
+        "rt_render_l", "rt_render_r", [1, 3, H, W] in [0, 1]) are kept when
+        given."""
         self.gt_depth = np.squeeze(np.asarray(outputs["gt_depth"]))
         self.test_mask = self.gt_depth > 1e-9
         self.pred_depth_est = self._depth(outputs["pred_depth_est"])
+        self.views = {k: None if outputs.get(k) is None else np.asarray(outputs[k])
+                      for k, _ in IMAGE_VIEWS}
+        self.gt_aif = self.views["gt_aif"]
         if self.train_mode == "deblur":
             self.pred_depth_fix = self._depth(outputs["pred_depth_fix"])
             self.pred_aif = np.asarray(outputs["pred_aif"])
-            gt_aif = outputs.get("gt_aif")
-            self.gt_aif = None if gt_aif is None else np.asarray(gt_aif)
 
     def compute_metrics(self):
         est, gt, m = self.pred_depth_est, self.gt_depth, self.test_mask
@@ -81,10 +91,28 @@ class ResultsMonitor:
                 s["ssim_deblur"] += M.mask_ssim(self.pred_aif, self.gt_aif)
         self.count += 1
 
-    def save_images(self, result_img_dir, scene, idx):
-        raise NotImplementedError(
-            "ResultsMonitor.save_images is not ported yet (ROADMAP.md §1 "
-            "item 2)")
+    def save_images(self, result_img_dir, scene, idx) -> list:
+        """Write the frame's RGB views (``<scene>_<idx>_rgb_*.png``, those
+        given to set_outputs) and its true and estimated depth as JET maps
+        (``_depth_gt.png``, ``_depth_est.png``, both scaled by 1.25 x the
+        true maximum) under result_img_dir. Returns the paths written."""
+        os.makedirs(result_img_dir, exist_ok=True)
+        stem = f"{result_img_dir}/{scene}_{idx}"
+        written = []
+        for key, name in IMAGE_VIEWS:
+            a = self.views[key]
+            if a is None:
+                continue
+            if a.ndim == 4:
+                a = a[0]
+            img = np.clip(a.transpose(1, 2, 0) * 255 + 0.5, 0, 255).astype(np.uint8)
+            written.append(write_png(f"{stem}_{name}.png", img))
+        depth_max = self.gt_depth.max() * 1.25
+        for name, depth in (("depth_gt", self.gt_depth), ("depth_est", self.pred_depth_est)):
+            u8 = (depth / depth_max * 255.0).astype(np.uint8)
+            written.append(write_png(f"{stem}_{name}.png", apply_colormap_jet(u8),
+                                     bgr=True))
+        return written
 
     def logging(self, epoch, num_scene):
         s = self.sums

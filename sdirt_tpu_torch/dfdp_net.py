@@ -3,7 +3,7 @@
 
   python -m sdirt_tpu_torch.dfdp_net --stage sample|full|train \\
       --config configs/<name>.yml [--train-mode dfdp|deblur] \\
-      [--device cuda|cpu] [--out DIR]
+      [--device cuda|cpu] [--out DIR] [--save-images]
 
   --stage sample  evaluate on the bundled real_sample_set: DP-simulation
                   fidelity (render the F/20 flat captures to F/4 through the
@@ -11,12 +11,22 @@
                   F/4 captures) and depth (DDDNet on the real box,
                   flat-to-depth and casual DP pairs: MAE, acc1..3, ...);
   --stage full    the same on the config's ``real_*_test`` sets;
-  --stage train   train DDDNet on DP pairs rendered on the fly from
-                  ``SyntheticRGBD`` scenes (render under no_grad, then one
-                  AdamW step), validating on rendered pairs and on the real
-                  box set every epoch, exporting the peak-validation-acc1
-                  net to ``ckpt_out`` and the resumable train state to
-                  ``train_state_dir``.
+  --stage train   train DDDNet on DP pairs rendered on the fly from the
+                  config's RGB-D sets (``NYUdata`` mixed with two passes of
+                  ``FlyingThings3D`` for the first half of the epochs, or
+                  ``FlyingThings3D``, or ``Synthetic`` scenes; render under
+                  no_grad, then one AdamW step), validating on rendered
+                  pairs of the test set (``FlyingThings3D``, ``NYUdata``,
+                  ``Middlebury2014/2021``, ``Middlebury_FS`` or
+                  ``Synthetic``) and on the real box set every epoch,
+                  exporting the peak-validation-acc1 net to ``ckpt_out``
+                  and the resumable train state to ``train_state_dir``.
+
+The dataset roots are config keys (``NYUdata_train``,
+``FlyingThings3D_train``, ``FlyingThings3D_test``, ``Middlebury_FS``, ...);
+point them at local copies in the published layouts. --save-images writes
+each validation and test frame's RGB views and JET depth maps under
+``--out``/results/ and ``--out``/tests/ (dfdp/monitor.py:save_images).
 
 --train-mode deblur adds the Mydeblur head: its refined depth and
 all-in-focus image are scored beside the depth (acc1..3 of the refined
@@ -32,9 +42,7 @@ scan, fused, fused_int8, basis, basis_int8), else the port's default
 ``fused_int8``. Matrix products and convolutions run in full f32 (TF32 off).
 The evaluation stages write ``DPimages/res.csv`` (flat scores: PSNR, SSIM
 and the weight-free perceptual distance per view) and ``depth.csv`` under
-``--out``. Not ported yet (ROADMAP.md §1): ``--save-images`` (item 2),
-``--data-parallel`` (item 3), and the NYU/FlyingThings3D/Middlebury training
-sets (item 1).
+``--out``. Not ported yet (ROADMAP.md §1): ``--data-parallel`` (item 3).
 """
 
 from __future__ import annotations
@@ -104,17 +112,23 @@ MULTI_FOCUS_SKIP = ("multi-focus stack net: real-capture eval skipped "
                     "(bundled sets are single-focus 1 m captures)")
 
 
-def _infer_outputs(net, stack, gt_depth, gt_aif=None) -> dict:
+def _infer_outputs(net, stack, gt_depth, gt_aif=None, views=None) -> dict:
     """The monitor's outputs of one frame: the depth, and in deblur mode
-    the refined depth and the all-in-focus image with its truth."""
+    the refined depth and the all-in-focus image with its truth; ``views``
+    adds the RGB views that save_images writes."""
     pred = dfdp_infer(net, stack)
+    out = {"gt_depth": gt_depth, **(views or {})}
     if net.train_mode != "deblur":
-        return {"gt_depth": gt_depth, "pred_depth_est": pred.cpu().numpy()}
+        return {**out, "pred_depth_est": pred.cpu().numpy()}
     depth, depth_fix, aif = pred
-    return {"gt_depth": gt_depth, "pred_depth_est": depth.cpu().numpy(),
+    return {**out, "pred_depth_est": depth.cpu().numpy(),
             "pred_depth_fix": depth_fix.cpu().numpy(),
             "pred_aif": aif.float().cpu().numpy(),
             "gt_aif": None if gt_aif is None else np.asarray(gt_aif)}
+
+
+def _saves_images(args) -> bool:
+    return bool(args is not None and args.get("save_images"))
 
 
 def test_depth(net, test_set, device, scene: str | None = None, epoch: int = 0,
@@ -123,17 +137,23 @@ def test_depth(net, test_set, device, scene: str | None = None, epoch: int = 0,
     (in deblur mode also those of the refined depth; the real sets carry no
     all-in-focus truth). With a ``scene`` name the averages are logged, and
     with ``args`` (unless ``args["save_ckpt"]`` is false) the net is kept
-    by the monitor's last/best policy under ``args["results_dir"]``."""
+    by the monitor's last/best policy under ``args["results_dir"]``; with
+    ``args["save_images"]`` each frame's images go to
+    ``<results_dir>/tests/``."""
     monitor = ResultsMonitor(net.train_mode)
     t_infer = 0.0
+    save = _saves_images(args)
     for idx in range(len(test_set)):
         imgs, gt_depth = test_set[idx]
         t0 = time.perf_counter()
         stack = torch.from_numpy(imgs[None]).to(device)
-        outputs = _infer_outputs(net, stack, gt_depth)
+        views = {"gt_l": imgs[None, :3], "gt_r": imgs[None, 3:6]} if save else None
+        outputs = _infer_outputs(net, stack, gt_depth, views=views)
         t_infer += time.perf_counter() - t0
         monitor.set_outputs(outputs)
         monitor.compute_metrics()
+        if save:
+            monitor.save_images(f"{args['results_dir']}/tests/", scene, idx)
     n = len(test_set)
     if scene is not None:
         logging.info(f"Test Depth Est on {scene} ({t_infer:.2f}s inference)")
@@ -168,14 +188,23 @@ def validate(net, test_lens, valid_set, scene, args, epoch=0):
     """Depth metrics on rendered (noise-free) pairs of a synthetic set (in
     deblur mode also the refined depth's, and the all-in-focus image's PSNR
     and SSIM against the scene); the net is kept by the monitor's last/best
-    policy."""
+    policy. With ``args["save_images"]`` each frame's images go to
+    ``<results_dir>/results/``."""
     loader = DataLoader(valid_set, batch_size=1, num_workers=2)
     monitor = ResultsMonitor(net.train_mode)
     n = len(valid_set)
-    for aif, gt_depth in loader:
+    save = _saves_images(args)
+    for idx, (aif, gt_depth) in enumerate(loader):
         stack, _, _ = _render_batch(test_lens, aif, gt_depth, train=False)
-        monitor.set_outputs(_infer_outputs(net, stack, gt_depth, aif))
+        views = None
+        if save:
+            rendered = stack.float().cpu().numpy()
+            views = {"gt_aif": aif, "rt_render_l": rendered[:, :3],
+                     "rt_render_r": rendered[:, 3:6]}
+        monitor.set_outputs(_infer_outputs(net, stack, gt_depth, aif, views))
         monitor.compute_metrics()
+        if save:
+            monitor.save_images(f"{args['results_dir']}/results/", scene, idx)
     logging.info(f"Validate Depth Est on {scene}")
     monitor.logging(epoch, n)
     monitor.save_pth(args, scene, n, net)
@@ -423,7 +452,10 @@ def run_eval(args: dict, stage: str = "sample", device="cuda",
     else:
         sets = get_depth_test_set(args) if full else get_depth_sample_set(args)
         for tag, ds in zip(("box", "f2d", "casual"), sets):
-            depth[tag] = test_depth(net, ds, dev)
+            # logged (and images named) by the JAX app's scene tags
+            scene = tag + ("" if full else "Sample") + untrained
+            depth[tag] = test_depth(net, ds, dev, scene,
+                                    args={**args, "save_ckpt": False})
             logging.info(f"depth {tag}{untrained}: {depth[tag]}")
     t2 = time.perf_counter()
     return {"flat": flat, "depth": depth,
@@ -461,6 +493,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--train-mode", choices=("dfdp", "deblur"), default="dfdp",
                     help="'deblur' adds the Mydeblur refinement head and its "
                          "depth_fix / aif loss terms")
+    ap.add_argument("--save-images", action="store_true",
+                    help="write each validation and test frame's RGB views "
+                         "and JET depth maps under --out")
     ap.add_argument("--data-parallel", action="store_true",
                     help=NOT_PORTED.format(what="data-parallel training", item=3))
     cli = ap.parse_args(argv)
@@ -471,7 +506,7 @@ def main(argv=None) -> dict:
     args = load_config(cli.config)
     out = cli.out or ("./results/" + datetime.now().strftime("%m%d-%H%M%S")
                       + "-Sdirt_torch")
-    args.update(results_dir=out, train_mode=cli.train_mode)
+    args.update(results_dir=out, train_mode=cli.train_mode, save_images=cli.save_images)
     os.makedirs(out, exist_ok=True)
     set_logger(out)
     set_seed(123456)

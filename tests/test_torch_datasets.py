@@ -141,3 +141,39 @@ def test_canon_sets_equal_jax_loaders(name):
         for a, b in zip(ours[i], ref[i], strict=True):
             assert a.dtype == b.dtype and a.shape == b.shape
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["box", "casual"])
+def test_canon_depth_items_cached_per_file_state(tmp_path, name):
+    """A Canon depth set's decoded items are kept for the process: a repeat
+    read, or one at another resolution, gives the JAX loader's arrays as
+    fresh copies, and a rewritten depth file is decoded again."""
+    from sdirt_tpu.dfdp import datasets as JD
+
+    rng = np.random.default_rng(7)
+    scene = tmp_path / ("001" if name == "box" else "orbbec/001")
+    scene.mkdir(parents=True)
+    for v in "lr":
+        cv2.imwrite(str(scene / f"{v}.png"), rng.integers(0, 256, (24, 36, 3), np.uint8))
+
+    def write_depth(seed):
+        d = np.random.default_rng(seed).integers(0, 2**16 if name == "casual" else 256,
+                                                 (30, 40))
+        cv2.imwrite(str(scene / "d.png"), d.astype(np.uint16 if name == "casual"
+                                                   else np.uint8))
+        os.utime(scene / "d.png", ns=(seed * 10**9, seed * 10**9))
+
+    cls = {"box": "CanonDepthSet", "casual": "CanonCasualSet"}[name]
+    for seed, res in ((1, (16, 24)), (1, (8, 12)), (2, (16, 24))):
+        write_depth(seed)
+        ours = getattr(TD, cls)(str(tmp_path), resize=res)
+        ref = getattr(JD, cls)(str(tmp_path), resize=res)[0]
+        first = ours[0]
+        for a in first:
+            a += 1.0                                      # the caller's copy only
+        img, depth = ours[0]
+        assert img.dtype == ref[0].dtype and depth.dtype == ref[1].dtype
+        # the bicubic resize's summation order differs from PIL's by an ulp
+        # on noise; depth (nearest) is bit-equal
+        np.testing.assert_allclose(img, ref[0], rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(depth, ref[1])

@@ -332,8 +332,9 @@ class _Cropped:
     def __len__(self):
         return self.n
 
-    def __getitem__(self, i):
-        return [np.ascontiguousarray(a[..., CROP[0], CROP[1]]) for a in self.ds[i]]
+    def __getitem__(self, i, rng=None):
+        return [np.ascontiguousarray(a[..., CROP[0], CROP[1]])
+                for a in self.ds.__getitem__(i, rng)]
 
 
 # the JAX rows the port's gate rows are held against, per surrogate

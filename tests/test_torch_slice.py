@@ -39,8 +39,9 @@ class Cropped:
     def __len__(self):
         return self.n
 
-    def __getitem__(self, i):
-        return [np.ascontiguousarray(a[..., CROP[0], CROP[1]]) for a in self.ds[i]]
+    def __getitem__(self, i, rng=None):
+        return [np.ascontiguousarray(a[..., CROP[0], CROP[1]])
+                for a in self.ds.__getitem__(i, rng)]
 
 
 def _jax_app():
@@ -165,6 +166,50 @@ def test_import_guard_covers_the_optics_slice():
     files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
              for p in _package_files()}
     assert set(OPTICS_SLICE) <= files
+
+
+# the modules of the real-data slice (loaders and decoders, save_images,
+# the depth-side tools)
+REAL_DATA_SLICE = ("io/exr.py", "io/jpeg.py", "utils/png.py", "dfdp/data_tools.py",
+                   "dfdp/datasets.py", "dfdp/factory.py", "dfdp/cvops.py",
+                   "dfdp/monitor.py", "dfdp_net.py", "utils/debug.py",
+                   "eval_depth_ckpt.py", "dp_disparity_probe.py",
+                   "finetune_real_loo.py")
+
+
+def test_import_guard_covers_the_real_data_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(REAL_DATA_SLICE) <= files
+
+
+DEPTH_TOOLS = ("eval_depth_ckpt", "dp_disparity_probe", "finetune_real_loo")
+
+
+@pytest.mark.parametrize("tool", DEPTH_TOOLS)
+def test_depth_tools_default_to_the_card_and_raise_without_one(monkeypatch, tool):
+    """The depth-side tools run on the card unless --device names the CPU,
+    and raise without a card instead of falling back."""
+    import importlib
+
+    mod = importlib.import_module(f"sdirt_tpu_torch.{tool}")
+    seen = {}
+
+    def stop(device="cuda"):
+        seen["device"] = device
+        raise SystemExit
+
+    monkeypatch.setattr(mod, "resolve_device", stop)
+    argv = [] if tool == "dp_disparity_probe" else ["--ckpt", "x"]
+    with pytest.raises(SystemExit):
+        mod.main(argv)
+    assert seen == {"device": "cuda"}
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
 
 
 AB_ARMS = ["--arm", "f4", "ckpt/rf50mm/Sdirt_f4_farfield",

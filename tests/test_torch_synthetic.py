@@ -148,7 +148,7 @@ class _Index:
     def __len__(self):
         return self.n
 
-    def __getitem__(self, i):
+    def __getitem__(self, i, rng=None):
         return [np.array([i]), np.full((2, 3), i, np.float32)]
 
 
@@ -174,10 +174,10 @@ def test_loader_order_equal_to_jax(drop_last):
 
 def test_loader_worker_exception_propagates():
     class Bad(_Index):
-        def __getitem__(self, i):
+        def __getitem__(self, i, rng=None):
             if i == 9:
                 raise ValueError("boom")
-            return super().__getitem__(i)
+            return super().__getitem__(i, rng)
 
     with pytest.raises(RuntimeError, match="worker failed") as err:
         list(TD.DataLoader(Bad(20), 2, num_workers=3))

@@ -16,6 +16,7 @@ import torch
 from sdirt_tpu_torch import dfdp_net
 from sdirt_tpu_torch.dfdp import factory
 from sdirt_tpu_torch.dfdp.basenet import build_basenet
+from sdirt_tpu_torch.dfdp.datasets import Subset
 from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
 from sdirt_tpu_torch.utils import checkpoint as C
 from sdirt_tpu_torch.utils.config import load_config
@@ -35,19 +36,6 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
-
-
-class _Subset:
-    """The first n items of a set."""
-
-    def __init__(self, ds, n):
-        self.ds, self.n = ds, n
-
-    def __len__(self):
-        return min(self.n, len(self.ds))
-
-    def __getitem__(self, i):
-        return self.ds[i]
 
 
 class _Records(logging.Handler):
@@ -141,9 +129,9 @@ def test_full_stage_runs_on_cpu(tmp_path, monkeypatch):
     monkeypatch.chdir(ROOT)
     flat_sets, depth_sets = dfdp_net.get_flat_test_set, dfdp_net.get_depth_test_set
     monkeypatch.setattr(dfdp_net, "get_flat_test_set",
-                        lambda args: _Subset(flat_sets(args), 1))
+                        lambda args: Subset(flat_sets(args), [0]))
     monkeypatch.setattr(dfdp_net, "get_depth_test_set",
-                        lambda args: tuple(_Subset(d, 1) for d in depth_sets(args)))
+                        lambda args: tuple(Subset(d, [0]) for d in depth_sets(args)))
     out = tmp_path / "full"
     result = dfdp_net.main(["--stage", "full", "--config", SMOKE,
                             "--device", "cpu", "--out", str(out)])
@@ -162,9 +150,60 @@ def test_unported_options_raise(argv, item):
         dfdp_net.train({"data_parallel": True}, device="cpu")
 
 
-def test_unported_datasets_raise():
+def _flyingthings_tree(root, n, seed):
+    """n FlyingThings3D scenes at 96x160: AiF.png and disp.exr (depth x 20)."""
+    from sdirt_tpu_torch.io.exr import write_exr
+    from sdirt_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    for s in range(n):
+        scene = root / f"{s:04d}"
+        os.makedirs(scene)
+        write_png(str(scene / "AiF.png"), rng.integers(0, 256, (96, 160, 3), np.uint8))
+        write_exr(str(scene / "disp.exr"),
+                  rng.uniform(0.4, 8.0, (96, 160)).astype(np.float32) * 20.0)
+    return str(root)
+
+
+def test_published_config_trains_on_cpu(tmp_path, monkeypatch):
+    """--stage train on configs/dfdp_by_sdirt_rf50mm.yml at 128x192, its
+    dataset roots pointed at the committed NYU tree and written
+    FlyingThings3D trees, cut to one step of the first-half mix (one NYU
+    and one FlyingThings3D item), with --save-images."""
+    import yaml
+
+    monkeypatch.chdir(ROOT)
+    monkeypatch.setattr(dfdp_net, "test_depth", lambda *a, **k: {"acc1": 0.0})
+    get = dfdp_net.get_dataset
+    monkeypatch.setattr(dfdp_net, "get_dataset", lambda args: (
+        Subset(get(args)[0], (0, 2000)), Subset(get(args)[1], (0, 1)),
+        get(args)[2]))
+    with open(os.path.join(ROOT, "configs", "dfdp_by_sdirt_rf50mm.yml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(res=[128, 192], bs=2, epochs=1,
+               NYUdata_train="sdirt_tpu_torch/reference/datasets/nyu2_train",
+               FlyingThings3D_train=_flyingthings_tree(tmp_path / "fly_train", 2, 0),
+               FlyingThings3D_test=_flyingthings_tree(tmp_path / "fly_val", 1, 1),
+               real_box_test="./real_sample_set/box",
+               real_flat_test="./real_sample_set/flat",
+               real_casual_test="./real_sample_set/casual")
+    path = tmp_path / "rf50mm.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    out = tmp_path / "out"
+    res = dfdp_net.main(["--stage", "train", "--config", str(path), "--device", "cpu",
+                         "--out", str(out), "--save-images"])
+    assert res["epochs_trained"] == 1 and len(res["losses"]) == 1
+    assert np.isfinite(res["losses"]).all()
+    assert len(res["val"]) == 2 and all(np.isfinite(v["acc1"]) for v in res["val"])
+    saved = sorted(os.listdir(out / "results"))
+    assert "fs_0_depth_est.png" in saved and "fs_0_rgb_rt_l.png" in saved, saved
+
+
+@pytest.mark.parametrize("side", ["train", "test"])
+def test_unknown_dataset_raises(side):
     args = load_config(os.path.join(ROOT, "configs", "dfdp_by_sdirt_rf50mm.yml"))
-    with pytest.raises(NotImplementedError, match="item 1"):
+    args[side] = {**args[side], "dataset": "KITTI"}
+    with pytest.raises(NotImplementedError, match="KITTI"):
         factory.get_dataset(args)
 
 
