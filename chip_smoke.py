@@ -9,7 +9,7 @@ Phases, each printing its elapsed seconds:
      MLP run in full f32;
   1. build: both CUDA kernels (K1 fused trace, K2 fused DP conv) are
      compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel with K1's
-     probe kernels; their -Xptxas -v reports, K1's SASS instruction count
+     probe kernels and the native engine's g++ build; their -Xptxas -v reports, K1's SASS instruction count
      per ray (rf50mm, rf35mm) and K2's shared memory per launch printed;
   2. K2 vs plain: K2 against its plain PyTorch version on seeded inputs at
      the serve shape (1x512x768x3, ks 21), the training render's shape
@@ -138,7 +138,33 @@ Phases, each printing its elapsed seconds:
      --sets box (finite losses; zero-shot acc1, held-out acc1 and MAE
      within 0.005), against sdirt_tpu_torch/reference/depth_tools_jax_cpu.json;
      each tool's seconds;
- 24. the kernels line, then the card's name and power limit, then the
+ 24. distillation: distill_basis_student's step on the JAX run's explicit
+     queries (rf50mm, teacher mlp, student mlpb@256x48 warm from mlp@256,
+     bs 8192), three losses within 1e-3 of the JAX float64 ones, its time
+     and idle share; distill_basis_student.main() cut in length only to 200
+     steps with two evals (16 K1 launches each), the loss falling, a
+     --resume rerun from step 100 on the same stream, the saved student
+     rendering through 'basis'; probe_teacher_l1.main() on the promoted
+     rf50mm student within 5x the JAX spread over three keys
+     (sdirt_tpu_torch/reference/distill_jax_cpu.json);
+ 25. student gate: gate_rf35_student.main() at the JAX script's defaults
+     (rf35mm mlp@256: fused, fused_int8) and on the promoted rf35mm
+     mlpb@256x48 (basis, scan, scan_f32), with the rf50mm calibration: every
+     number within 0.1 dB of the JAX CPU run and the same verdicts, K2 once
+     per view and scene on the fused rows only
+     (student_gate_jax_cpu.json);
+ 26. multi-GPU: fit_psfnet.main(--mesh 1 1) at the published width on NCCL
+     (5 steps, K1 on the rank); dfdp_net.main(--stage train --data-parallel)
+     on the one card (the single-chip line, one step); then 2 gloo ranks on
+     the one card: a (1, 2) fit step at bs 64 x 20 000 rays (10 000 traced
+     per rank through K1) and a (2, 1) DfDP step at 512x768, bs 4, with the
+     shipped net (each rank's half rendered through K2), held to the
+     one-rank step on the same samples (1e-6; 1e-4 for the DfDP losses and
+     BatchNorm statistics); each step's ms;
+ 27. native engine: the C++ EXR decoder (built in phase 1 beside nvcc)
+     bit-equal to io/exr.py on FlyingThings3D trees as phase 22 writes
+     them, the dataset items equal under both engines, host ms per read;
+ 28. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -146,6 +172,7 @@ printed.
 
 import collections
 import copy
+import glob
 import json
 import os
 import signal
@@ -541,8 +568,7 @@ def k1_sass_report(plans, probes):
     out, _ = proc.communicate(timeout=left_s())
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on K1's probes:\n{out}")
-    for fn, ins in sass.parse(sass.cuobjdump(os.path.join(kernels.BUILD_DIR,
-                                                          "fused_trace.so"))).items():
+    for fn, ins in sass.parse(sass.cuobjdump(kernels.lib_paths["fused_trace"])).items():
         print(f"SASS {fn[-40:]} (static, whole kernel): {sass.summary(sass.static_counts(ins))}")
     funcs = {f: sass.fast_path(ins) for f, ins in sass.parse(sass.cuobjdump(cubin)).items()}
     base = funcs["probe_base"]
@@ -1824,6 +1850,359 @@ def depth_tools_phase(fused_conv, fused_trace):
     return out
 
 
+DISTILL_ARGS = ["--lens", "lenses/rf50mm/lens_web.json", "--teacher", "mlp",
+                "--teacher-ckpt", "ckpt/rf50mm/F4_PSFNet_mlp", "--student", BASIS_NET,
+                "--warm", "ckpt/rf50mm/F4_PSFNet_mlp@256", "--bs", "8192", "--lr", "5e-5",
+                "--ks", "21", "--iters", "200", "--eval-every", "100", "--device", "cuda"]
+# the card's f32 steps against the JAX package's float64 ones: the CPU port in
+# float64 is within 1e-6 (tests/test_torch_distill.py); f32 and cuBLAS's
+# summation order leave ~1e-6, so 1e-3 holds with room for TF32 slipping in
+DISTILL_RTOL = 1e-3
+GATE_STUDENTS = {
+    "mlp": ["--student-ckpt", "ckpt/rf35mm/F4_PSFNet_mlp@256"],
+    "mlpb": ["--student", BASIS_NET, "--student-ckpt", "ckpt/rf35mm/F4_PSFNet_mlpb@256x48",
+             "--variants", "basis", "scan", "scan_f32"]}
+# two ranks on the one card over gloo: the fit step at its published width,
+# the DfDP step at the training path's (512x768, bs 4, the shipped net)
+PAR_FIT = {"lens": "lenses/rf50mm/lens_web.json", "ks": KS, "model": "mlp", "bs": 64,
+           "spp": 20000, "lr": 1.0, "steps": 1, "n_data": 1, "seed": 5}
+PAR_FIT_RTOL = 1e-6
+PAR_DFDP_RTOL = 1e-4
+MESH_FIT_ARGS = ["--device", "cuda", "--lens", "lenses/rf50mm/lens_web.json", "--model",
+                 "mlp", "--ks", "21", "--res", "512", "768", "--bs", "64", "--spp", "20000",
+                 "--iters", "4", "--evaluate-every", "1000", "--skip-analysis",
+                 "--mesh", "1", "1"]
+
+
+def distill_phase(fused_trace, smi):
+    """Phase 24: the basis-student distillation and the teacher probe, held
+    against sdirt_tpu_torch/reference/distill_jax_cpu.json."""
+    from sdirt_tpu_torch import dfdp_net
+    from sdirt_tpu_torch import distill_basis_student as distill
+    from sdirt_tpu_torch import probe_teacher_l1
+    from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+    from sdirt_tpu_torch.psfnet.train import create_train_state
+    from sdirt_tpu_torch.utils.weights import flax_to_torch
+
+    with open(os.path.join(REF_DIR, "distill_jax_cpu.json")) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(REF_DIR, "distill_queries.npz")) as z:
+        queries = torch.from_numpy(z["inp"]).cuda()
+        init = {k[len("init/"):]: z[k] for k in z.files if k.startswith("init/")}
+    out, failed = {}, []
+
+    def lens(model, weights):
+        return PSFNetLens("lenses/rf50mm/lens_web.json", model_name=model, kernel_size=KS,
+                          sensor_res=(512, 768), device="cuda").load_net(weights)
+
+    teacher = lens("mlp", "sdirt_tpu_torch/weights/rf50mm/F4_PSFNet_mlp.npz")
+    student = lens(BASIS_NET, "sdirt_tpu_torch/weights/rf50mm/F4_PSFNet_mlp@256.npz")
+    student.net.load_state_dict({**student.net.state_dict(),
+                                 **{k: v.cuda() for k, v in flax_to_torch(init).items()}})
+    teacher.net.eval()
+    state = create_train_state(student.net, ref["lr"], ref["iters"])
+    step = distill.make_distill_step(teacher.net, state, KS)
+    losses = [float(step(q)) for q in queries]
+    rel = [abs(a - b) / b for a, b in zip(losses, ref["losses"])]
+    print(f"distill steps on the JAX run's queries: losses {losses} (JAX float64 "
+          f"{ref['losses']}; max relative diff {max(rel):.2e}, tolerance {DISTILL_RTOL})")
+    if not max(rel) <= DISTILL_RTOL:
+        failed.append("distill steps")
+    out["first_steps_rel"] = max(rel)
+    out["step_ms"] = cuda_time_ms(lambda: step(queries[0]), 50)
+    rows, busy = device_profile(lambda: step(queries[0]), 20)
+    print_profile("distill step (bs 8192: the w512 teacher's forward, the student's "
+                  "step)", rows, busy, 20, out["step_ms"])
+    out["step_idle"] = 1 - busy / 20 / out["step_ms"] if rows else None
+    del teacher, student, state, step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_trace.launches = 0
+        res = distill.main(DISTILL_ARGS + ["--out", tmp])
+        out["k1_launches"] = fused_trace.launches
+        losses = np.array(res["losses"])
+        out["eval_ms"] = res["seconds"]["evals"] / len(res["evals"]) * 1e3
+        out["loop_step_ms"] = res["seconds"]["steps"] / len(losses) * 1e3
+        print(f"distill_basis_student.main (rf50mm, mlp -> {BASIS_NET} warm from "
+              f"mlp@256, bs 8192, lr 5e-5, ks 21; cut in length only to 200 of "
+              f"200 000 steps, evals every 100): losses {losses[0]:.4e} -> "
+              f"{losses[-1]:.4e} (first 20 mean {losses[:20].mean():.4e}, last 20 "
+              f"{losses[-20:].mean():.4e}); evals {res['evals']}; K1 launches "
+              f"{out['k1_launches']} (16 per eval); host ms per step in the loop "
+              f"{out['loop_step_ms']:.3f}, per eval {out['eval_ms']:.3f}")
+        if not (np.isfinite(losses).all() and losses[-20:].mean() < losses[:20].mean()):
+            failed.append("distill loss")
+        if out["k1_launches"] != 16 * len(res["evals"]):
+            failed.append("distill K1 launches")
+        os.remove(os.path.join(tmp, "state", "step_200.pt"))
+        again = distill.main(DISTILL_ARGS + ["--out", tmp, "--resume"])
+        gap = float(np.max(np.abs(np.array(again["losses"]) - losses[100:])
+                           / losses[100:]))
+        print(f"--resume from step {again['start']}: {len(again['losses'])} steps, "
+              f"largest relative diff from the unbroken run's losses {gap:.2e}")
+        if again["start"] != 100 or len(again["losses"]) != 100 or not gap <= 1e-5:
+            failed.append("distill resume")
+        saved = lens(BASIS_NET, res["student"])
+    args = dfdp_net.load_config("configs/dfdp_by_sdirt_rf50mm.yml")
+    _, f20, depth = dfdp_net.get_flat_sample_set(args)[0]
+    dof = saved.render(f20[None, :3], -depth[None] * 1e3, None, "basis")
+    print(f"the distilled student through 'basis': {tuple(dof.shape)}, range "
+          f"[{float(dof.min()):.4f}, {float(dof.max()):.4f}]")
+    if dof.shape != (1, 6, 512, 768) or not bool(torch.isfinite(dof).all()):
+        failed.append("distilled student render")
+    del saved, dof
+
+    fused_trace.launches = 0
+    probe = probe_teacher_l1.main(["--lens", "lenses/rf50mm/lens_web.json", "--model",
+                                   BASIS_NET, "--ckpt", "ckpt/rf50mm/F4_PSFNet_mlpb@256x48",
+                                   "--device", "cuda"])
+    out["probe_k1_launches"] = fused_trace.launches
+    for k in ("l1", "l2"):
+        st = ref["eval_stats"][k]
+        d = probe[k] - st["mean"]
+        print(f"probe_teacher_l1 {BASIS_NET} (rf50mm) {k}: {probe[k]!r} (JAX CPU mean "
+              f"{st['mean']!r}, spread {st['spread']:.3e}, diff {d:+.3e}, tolerance "
+              f"{st['tolerance']:.3e})")
+        if not (np.isfinite(probe[k]) and abs(d) <= st["tolerance"]):
+            failed.append(f"probe {k}")
+    if out["probe_k1_launches"] != 16:
+        failed.append("probe K1 launches")
+    out["probe"] = probe
+    print(f"distill: {out['step_ms']:.3f} ms per step (CUDA events), "
+          f"{out['eval_ms']:.3f} ms per eval (host clock); {smi}")
+    if failed:
+        raise RuntimeError(f"the distillation is off the JAX reference: {failed}")
+    return out
+
+
+def student_gate_phase(fused_conv, smi):
+    """Phase 25: gate_rf35_student.main() at the JAX script's defaults and on
+    the promoted basis student, held against
+    sdirt_tpu_torch/reference/student_gate_jax_cpu.json (512x768)."""
+    from sdirt_tpu_torch import gate_rf35_student
+
+    with open(os.path.join(REF_DIR, "student_gate_jax_cpu.json")) as f:
+        ref = json.load(f)["512x768"]
+    out, failed = {}, []
+    for run, argv in GATE_STUDENTS.items():
+        want = ref["runs"][run]
+        fused_conv.launches = 0
+        res = gate_rf35_student.main(argv + ["--device", "cuda"])
+        launches = fused_conv.launches
+        cal = (res["calibration"][0] - ref["calibration"]["psnr_l"],
+               res["calibration"][1] - ref["calibration"]["psnr_r"])
+        print(f"student gate ({run}): calibration {res['calibration']} (JAX CPU "
+              f"{ref['calibration']}; diff {cal[0]:+.4f} / {cal[1]:+.4f} dB, tolerance "
+              f"{PSNR_TOL_DB})")
+        if not max(abs(v) for v in cal) <= PSNR_TOL_DB:
+            failed.append(f"{run} calibration")
+        n_k2 = 0
+        for v, row in res["rows"].items():
+            w = want["rows"][v]
+            d = (row["agree_l"] - w["agree_l"], row["agree_r"] - w["agree_r"])
+            ok = max(abs(x) for x in d) <= PSNR_TOL_DB
+            want_k2 = 2 * 2 if v.startswith("fused") else 0   # per view and scene
+            print(f"  {v}: agree {row['agree_l']:.4f} / {row['agree_r']:.4f} dB (JAX CPU "
+                  f"{w['agree_l']:.4f} / {w['agree_r']:.4f}; diff {d[0]:+.4f} / "
+                  f"{d[1]:+.4f}, tolerance {PSNR_TOL_DB}); {row['verdict']} (JAX {w['verdict']}); "
+                  f"K2 launches {row['k2_launches']} (want {want_k2}); "
+                  f"{row['render_ms']:.1f} ms per render (host clock)")
+            if not ok:
+                failed.append(f"{run} {v} agreement")
+            if row["verdict"] != w["verdict"]:
+                failed.append(f"{run} {v} verdict")
+            if row["k2_launches"] != want_k2:
+                failed.append(f"{run} {v} K2 launches")
+            n_k2 += row["k2_launches"]
+        # the calibration's w256 fused_int8 renders launch K2 as well
+        cal_k2 = 2 * 2 if res["calibration"] is not None else 0
+        print(f"  K2 launches in the run: {launches} (fused rows {n_k2} + the "
+              f"calibration's fused_int8 {cal_k2})")
+        if launches != n_k2 + cal_k2:
+            failed.append(f"{run}: K2 launched outside the fused rows")
+        out[run] = {"calibration": res["calibration"], "rows": res["rows"],
+                    "k2_launches": launches}
+    if failed:
+        raise RuntimeError(f"the student gate is off the JAX reference: {failed}")
+    return out
+
+
+class _LogLines(list):
+    """A logging handler's records, as text."""
+
+    def __enter__(self):
+        import logging
+
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda r: self.append(r.getMessage())
+        root = logging.getLogger()
+        root.addHandler(self.handler)
+        self.level = root.level
+        root.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger().removeHandler(self.handler)
+        logging.getLogger().setLevel(self.level)
+
+
+def multi_gpu_phase(dfdp_net, fit_psfnet, fused_conv, fused_trace, smi):
+    """Phase 26: --mesh 1 1 and --data-parallel through their main() on one
+    card, then the sharded steps on 2 gloo ranks of the one card held to
+    the one-rank step on the same samples."""
+    from sdirt_tpu_torch.dfdp.datasets import SyntheticRGBD
+    from sdirt_tpu_torch.parallel import launch
+    from sdirt_tpu_torch.parallel import equivalence as eq
+
+    out, failed = {}, []
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with _LogLines() as log:
+            fit = fit_psfnet.main(MESH_FIT_ARGS + ["--result-dir", tmp])
+        out["mesh_seconds"] = time.perf_counter() - t0
+        out["mesh_k1_launches"] = fit["k1_launches"]
+        print(f"fit_psfnet --mesh 1 1 (NCCL, one rank, the published width, 5 steps): "
+              f"losses {np.round(fit['losses'], 6).tolist()}, K1 launches per rank "
+              f"{fit['k1_launches']}, {out['mesh_seconds']:.1f} s with the rank's start; "
+              f"log: {[m for m in log if 'mesh' in m]}")
+        if not (np.isfinite(fit["losses"]).all() and len(fit["losses"]) == 5
+                and fit["k1_launches"] == [10]
+                and "multi-chip fit over mesh {'data': 1, 'rays': 1}" in log):
+            failed.append("--mesh 1 1")
+
+        # cut in length only: one step, one validation item, and the
+        # per-epoch real box evaluation cut to one scene (as phase 22's)
+        box = os.path.join(tmp, "box")
+        os.makedirs(box)
+        first_box = sorted(os.listdir("real_sample_set/box"))[0]
+        os.symlink(os.path.join(ROOT, "real_sample_set", "box", first_box),
+                   os.path.join(box, first_box))
+        cfg_path, _ = cut_config(TRAIN_CONFIG, tmp, epochs=1, synthetic_len=4,
+                                 synthetic_val_len=1, ckpt_out=os.path.join(tmp, "best"),
+                                 train_state_dir=os.path.join(tmp, "state"),
+                                 real_box_test=box)
+        fused_conv.launches = 0
+        res = dfdp_net.main(["--stage", "train", "--data-parallel", "--config", cfg_path,
+                             "--device", "cuda", "--out", os.path.join(tmp, "dp")])
+        out["data_parallel_k2_launches"] = fused_conv.launches
+        with open(os.path.join(tmp, "dp", "train.log")) as f:
+            log = f.read()
+        single = ("data_parallel requested but only one usable device; running "
+                  "single-chip")
+        print(f"dfdp_net --stage train --data-parallel on one card ({TRAIN_CONFIG} cut to "
+              f"1 step, 1 validation item and 1 box scene at 512x768, bs 4): '{single}' logged: "
+              f"{single in log}; losses {res['losses']}; K2 launches "
+              f"{out['data_parallel_k2_launches']}")
+        if not (single in log and len(res["losses"]) == 1
+                and np.isfinite(res["losses"]).all()
+                and out["data_parallel_k2_launches"] == 3):
+            failed.append("--data-parallel on one card")
+
+    ds = SyntheticRGBD((512, 768), length=4, seed=0, train=False, style="v5")
+    items = [ds[i] for i in range(4)]
+    # without cuDNN on both sides: it picks its convolution algorithms by
+    # batch size, and bs 2 against bs 4 then differs by 1.8e-4 of the loss
+    # (PERF.md section 6) -- the algorithms', not the split's
+    dfdp_spec = {"weights": "sdirt_tpu_torch/weights/rf50mm/Sdirt_best_acc1.npz",
+                 "lr": 3e-5, "total_steps": 4, "steps": 1, "config": TRAIN_CONFIG,
+                 "cudnn_off": True,
+                 "aif": np.stack([i[0] for i in items])[None],
+                 "depth": np.stack([i[1] for i in items])[None]}
+    one_fit = eq.fit_rank(0, 1, torch.device("cuda"), PAR_FIT)
+    # the one-rank step renders the batch in the ranks' halves: cuBLAS may
+    # pick other GEMMs for the bf16 PSF network at another row count; the
+    # split under test is the step's
+    one_dfdp = eq.dfdp_rank(0, 1, torch.device("cuda"), {**dfdp_spec, "render_in": 2})
+    torch.backends.cudnn.enabled = True
+    t0 = time.perf_counter()
+    ranks = launch(eq.sequence, 2, backend="gloo", device="cuda:0",
+                   args=([("fit_rank", PAR_FIT), ("dfdp_rank", dfdp_spec)],),
+                   timeout=min(300.0, left_s()))
+    out["two_rank_seconds"] = time.perf_counter() - t0
+    out["two_rank_k1_launches"] = [r[0]["k1_launches"] for r in ranks]
+    out["two_rank_k2_launches"] = [r[1]["k2_launches"] for r in ranks]
+    for rank, (fit_r, dfdp_r) in enumerate(ranks):
+        loss_rel = abs(fit_r["losses"][0] - one_fit["losses"][0]) / one_fit["losses"][0]
+        par = float(np.abs(fit_r["params"] - one_fit["params"]).max()
+                    / np.abs(one_fit["params"]).max())
+        terms = {k: abs(dfdp_r["losses"][0][k] - v) / abs(v)
+                 for k, v in one_dfdp["losses"][0].items()}
+        stats = max(float(np.abs(dfdp_r["batch_stats"][k] - v).max() / np.abs(v).max())
+                    for k, v in one_dfdp["batch_stats"].items())
+        print(f"rank {rank} of 2 (gloo, both on the one card): fit step (1, 2) at bs 64 x "
+              f"20 000 rays, 10 000 traced here: loss {fit_r['losses'][0]!r} (one rank "
+              f"{one_fit['losses'][0]!r}, relative diff {loss_rel:.2e}), parameters after "
+              f"an SGD step within {par:.2e} of their largest (tolerance {PAR_FIT_RTOL}), "
+              f"K1 launches {fit_r['k1_launches']}, step {fit_r['step_ms'][0]:.3f} ms; "
+              f"DfDP step (2, 1) at 512x768, bs 2 of 4: loss terms {dfdp_r['losses'][0]} "
+              f"(relative diffs {terms}), BN running statistics within {stats:.2e} "
+              f"(tolerance {PAR_DFDP_RTOL}), K2 launches {dfdp_r['k2_launches']}, step "
+              f"{dfdp_r['step_ms'][0]:.3f} ms")
+        if not (loss_rel <= PAR_FIT_RTOL and par <= PAR_FIT_RTOL
+                and fit_r["k1_launches"] == 2):
+            failed.append(f"rank {rank} fit step")
+        if not (max(terms.values()) <= PAR_DFDP_RTOL and stats <= PAR_DFDP_RTOL
+                and dfdp_r["k2_launches"] == 1):
+            failed.append(f"rank {rank} DfDP step")
+    out["one_rank_ms"] = {"fit": one_fit["step_ms"][0], "dfdp": one_dfdp["step_ms"][0]}
+    out["two_rank_ms"] = {"fit": [r[0]["step_ms"][0] for r in ranks],
+                          "dfdp": [r[1]["step_ms"][0] for r in ranks]}
+    print(f"step ms (host clock around a synchronised step): one rank fit "
+          f"{one_fit['step_ms'][0]:.3f}, DfDP {one_dfdp['step_ms'][0]:.3f}; two ranks "
+          f"{out['two_rank_ms']} -- the two ranks share one card and talk over gloo "
+          f"through the host, so these are no multi-GPU speed; the launch took "
+          f"{out['two_rank_seconds']:.1f} s with the ranks' start; {smi}")
+    if failed:
+        raise RuntimeError(f"the multi-GPU paths failed: {failed}")
+    return out
+
+
+def native_phase():
+    """Phase 27: the native engine's EXR decoder on FlyingThings3D trees as
+    phase 22 writes them, against io/exr.py, and the dataset engine switch."""
+    from sdirt_tpu_torch import native
+    from sdirt_tpu_torch.dfdp import datasets as D
+    from sdirt_tpu_torch.io.exr import read_exr
+
+    out = {"build_seconds": native.build_seconds}
+    print("native engine: the card's machine has zlib.h but neither jpeglib.h nor png.h, "
+          "so only the EXR decoder (sdirt_exr.cc) is built; the PNG/JPEG decode, "
+          "load_batch and the --stage sample check wait for those headers (ROADMAP.md)")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_ft3d_tree(os.path.join(tmp, "ft3d"), 2, 11)
+        exrs = sorted(glob.glob(os.path.join(root, "*", "disp.exr")))
+        for p in exrs:
+            if not np.array_equal(native.decode_exr(p), read_exr(p)):
+                raise RuntimeError(f"the native EXR decode differs from io/exr.py on {p}")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            native.decode_exr(exrs[0])
+        out["native_exr_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(5):
+            read_exr(exrs[0])
+        out["numpy_exr_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        items = {}
+        for engine in ("numpy", "native"):
+            D.set_image_engine(engine)
+            ds = D.FlyingThings3D(root, resize=(512, 768), train=False)
+            items[engine] = [ds[i] for i in range(len(ds))]
+        D.set_image_engine("numpy")
+        same = all(np.array_equal(a, b) for x, y in zip(items["numpy"], items["native"])
+                   for a, b in zip(x, y))
+    print(f"native EXR decode bit-equal to io/exr.py on {len(exrs)} 960x540 disp.exr "
+          f"(ZIP); FlyingThings3D items equal under both engines: {same}; host ms per "
+          f"EXR read: native {out['native_exr_ms']:.2f}, numpy {out['numpy_exr_ms']:.2f} "
+          f"(built in {out['build_seconds']:.2f} s beside nvcc)")
+    if not same:
+        raise RuntimeError("the native engine's items differ from the numpy engine's")
+    return out
+
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -1842,6 +2221,7 @@ def main():
     from sdirt_tpu_torch.psfnet.train import (create_train_state, make_eval_fn,
                                               make_train_step)
     from sdirt_tpu_torch.render import fused_conv
+    from sdirt_tpu_torch import native
     from sdirt_tpu_torch.utils import kernels
     from sdirt_tpu_torch.render.mlp_fast import mlp_psf_tapmajor
     from sdirt_tpu_torch.render.pipeline import query_points
@@ -1864,9 +2244,24 @@ def main():
         f"lenses/{lens_name}/lens_web.json", sensor_res=(512, 768), device="cpu"))
         for lens_name in ("rf50mm", "rf35mm")}
     probes = start_k1_probes(list(cpu_plans.values()), kernels.BUILD_DIR)
-    kernels.build(timeout=left_s())
+    # the native engine's g++ build runs beside the nvcc builds
+    native_build = {}
+
+    def build_native():
+        try:
+            native.build(timeout=left_s(), reuse=False)
+        except Exception as e:  # noqa: BLE001 - raised below, in the main thread
+            native_build["error"] = e
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
+    kernels.build(timeout=left_s(), reuse=False)
+    native_thread.join(timeout=left_s())
+    if "error" in native_build or native_thread.is_alive():
+        raise RuntimeError(f"the native engine did not build: {native_build.get('error')}")
     print(f"nvcc: {len(kernels.SOURCES)} sources in parallel, "
-          f"{kernels.build_seconds:.2f} s")
+          f"{kernels.build_seconds:.2f} s; g++ (native EXR decoder) beside them, "
+          f"{native.build_seconds:.2f} s")
     for src, log in kernels.build_log.items():
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "stack",
@@ -2214,7 +2609,27 @@ def main():
     tools = depth_tools_phase(fused_conv, fused_trace)
     phase("23 depth-side tools", t)
 
-    # -- 24. result ----------------------------------------------------------
+    # -- 24. the basis-student distillation -------------------------------------------
+    t = time.perf_counter()
+    distilled = distill_phase(fused_trace, smi)
+    phase("24 distillation", t)
+
+    # -- 25. the rf35mm student gate ----------------------------------------------------
+    t = time.perf_counter()
+    gate35 = student_gate_phase(fused_conv, smi)
+    phase("25 student gate", t)
+
+    # -- 26. multi-GPU ----------------------------------------------------------------
+    t = time.perf_counter()
+    multi = multi_gpu_phase(dfdp_net, fit_psfnet, fused_conv, fused_trace, smi)
+    phase("26 multi-GPU", t)
+
+    # -- 27. the native engine ----------------------------------------------------------
+    t = time.perf_counter()
+    native_stats = native_phase()
+    phase("27 native engine", t)
+
+    # -- 28. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, train_stats["k2"]["max_abs_err"],
@@ -2225,11 +2640,18 @@ def main():
                 "serve_f18": f18["launches"], "farfield_ab": ab["launches"],
                 "deblur": deblur["sample_launches"] + deblur["train_launches"],
                 "stack": stack["launches"], "published_train": real["k2_launches"],
-                "eval_depth_ckpt": tools["eval_k2_launches"]}
+                "eval_depth_ckpt": tools["eval_k2_launches"],
+                "student_gate": sum(r["k2_launches"] for r in gate35.values()),
+                "data_parallel_1card": multi["data_parallel_k2_launches"],
+                "dfdp_2rank": sum(multi["two_rank_k2_launches"])}
     k1_err = max(v[0] for v in k1_check.values())
     k1_paths = {"fit_analysis": k1_launches,
                 **{f"fit_{m}": v["k1_launches"] for m, v in heads.items()},
-                "disparity_probe_traced": tools["probe_k1_launches"]}
+                "disparity_probe_traced": tools["probe_k1_launches"],
+                "distill_eval": distilled["k1_launches"],
+                "probe_teacher_l1": distilled["probe_k1_launches"],
+                "fit_mesh_1x1": sum(multi["mesh_k1_launches"]),
+                "fit_2rank": sum(multi["two_rank_k1_launches"])}
     print(json.dumps({"kernels": [{
         "name": "fused_trace_sensor", "route": "cuda",
         "source": "sdirt_tpu_torch/csrc/fused_trace.cu",
@@ -2259,7 +2681,8 @@ def main():
         "serve_f18": f18, "farfield_ab": ab, "deblur": deblur, "stack": stack,
         "analysis": analysis, "fit_heads": heads, "baselines": base,
         "coherent": coherent, "lens_design": design, "published_train": real,
-        "depth_tools": tools}))
+        "depth_tools": tools, "distill": distilled, "student_gate": gate35,
+        "multi_gpu": multi, "native": native_stats}, default=float))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,10 @@ loaders and written as flat float32 trees (``"params/Dense_0/kernel"``,
 surrogates and depth nets of configs/dfdp_by_sdirt_{rf50mm,rf35mm}.yml,
 both lenses' promoted basis students (ckpt/*/PROMOTED_SURROGATE.json), the
 far-field A/B's F/1.8 ks-35 surrogate and its two depth nets
-(configs/dfdp_f{4,18}_farfield_256.yml), the 256-wide F/4 surrogate (the
-second view of a multi-focus stack) and the deblur demo net with its
-Mydeblur head. Only the inference leaves are written: parameters and
+(configs/dfdp_f{4,18}_farfield_256.yml), the 256-wide F/4 surrogates (the
+second view of a multi-focus stack; on rf35mm the warm start of a basis
+student and the student that gate_rf35_student gates by default) and the
+deblur demo net with its Mydeblur head. Only the inference leaves are written: parameters and
 BatchNorm statistics.
 
 ``psfnet_init_tree`` gives a seeded Flax initialisation of any surrogate
@@ -51,7 +52,7 @@ EXPORTS = (("rf50mm", "F4_PSFNet_mlp"), ("rf50mm", "Sdirt_best_acc1"),
            ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"),
            ("rf50mm", "F18_PSFNet_mlp_ks35"), ("rf50mm", "F4_PSFNet_mlp@256"),
            ("rf50mm", "Sdirt_f4_farfield"), ("rf50mm", "Sdirt_f18_farfield"),
-           ("rf50mm", "Sdirt_deblur_demo_cpu"))
+           ("rf50mm", "Sdirt_deblur_demo_cpu"), ("rf35mm", "F4_PSFNet_mlp@256"))
 # depth nets with the Mydeblur head (Basenet(train_mode="deblur"))
 DEBLUR_NETS = ("Sdirt_deblur_demo_cpu",)
 

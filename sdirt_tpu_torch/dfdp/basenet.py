@@ -41,18 +41,23 @@ def smooth_l1(pred, target):
 
 
 def compute_loss(results: dict, gt_log_depth, mask, gt_aif=None,
-                 train_mode: str = "dfdp"):
+                 train_mode: str = "dfdp", total=None):
     """Masked SmoothL1 on log depth: {"depth_est", "total"} (0-d tensors).
     ``deblur`` adds "depth_fix" (the same on the refined depth) and "aif"
     (SmoothL1 of the all-in-focus image against ``gt_aif``, a plain mean),
-    with total = 2 depth_est + depth_fix + aif."""
+    with total = 2 depth_est + depth_fix + aif.
+
+    total: applied to every sum and count before they are divided (the
+    data-parallel step passes an all_reduce over its ranks, so the loss is
+    that of the whole batch); None for this batch alone."""
     if train_mode not in TRAIN_MODES:
         raise ValueError(f"train_mode {train_mode!r} not in {TRAIN_MODES}")
+    reduce = (lambda t: t) if total is None else total
     m = mask.to(gt_log_depth.dtype)
-    denom = m.sum() + 1e-9
+    denom = reduce(m.sum()) + 1e-9
 
     def masked_sl1(pred):
-        return (smooth_l1(pred, gt_log_depth) * m).sum() / denom
+        return reduce((smooth_l1(pred, gt_log_depth) * m).sum()) / denom
 
     depth_est = masked_sl1(results["pred_depth_est"])
     if train_mode == "dfdp":
@@ -60,7 +65,10 @@ def compute_loss(results: dict, gt_log_depth, mask, gt_aif=None,
     if gt_aif is None:
         raise ValueError("the deblur loss needs the all-in-focus image gt_aif")
     depth_fix = masked_sl1(results["pred_depth_fix"])
-    aif = smooth_l1(results["pred_aif"], gt_aif).mean()
+    sl1 = smooth_l1(results["pred_aif"], gt_aif)
+    aif = sl1.mean() if total is None else (
+        total(sl1.sum()) / total(torch.tensor(float(sl1.numel()), dtype=sl1.dtype,
+                                              device=sl1.device)))
     return {"depth_est": depth_est, "depth_fix": depth_fix, "aif": aif,
             "total": depth_est * 2 + depth_fix + aif}
 

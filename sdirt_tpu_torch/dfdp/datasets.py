@@ -32,6 +32,16 @@ ignores it. The ``DataLoader`` seeds it from its epoch seed and the item's
 index in the loader's dataset; an item read directly without one is seeded
 from its index alone. A ``RandomState`` seeded like the global one gives
 the JAX loader's draws.
+
+The EXR engine (``SDIRT_IMAGE_ENGINE`` / ``set_image_engine``) is ``numpy``
+(the default, ``io/exr.py``) or ``native`` (the C++ decoder of
+``sdirt_tpu_torch/native``, bit-identical). It applies where the JAX
+package's ``native`` engine reads EXRs: FlyingThings3D's and
+Middlebury-FS's ``disp.exr``. The JAX engine also decodes the Canon sets'
+l/r views in C++; the port's ``native/`` has no image decoder (the card's
+machine lacks the libjpeg and libpng headers), so those views are read by
+the numpy decoders under either engine. Asking for ``native`` where the
+library cannot be built raises.
 """
 
 from __future__ import annotations
@@ -49,6 +59,29 @@ import numpy as np
 from ..io.exr import read_exr
 from ..io.jpeg import read_jpeg
 from . import cvops
+
+ENGINES = ("numpy", "native")
+_IMAGE_ENGINE = os.environ.get("SDIRT_IMAGE_ENGINE", "numpy")
+
+
+def set_image_engine(engine: str):
+    """Select the EXR decoder: ``numpy`` or ``native``."""
+    global _IMAGE_ENGINE
+    if engine not in ENGINES:
+        raise ValueError(f"image engine {engine!r}: one of {ENGINES}")
+    _IMAGE_ENGINE = engine
+
+
+def _load_exr(path):
+    """A float EXR through the selected engine (both give the same bits)."""
+    if _IMAGE_ENGINE == "native":
+        from .. import native
+
+        return native.decode_exr(path)
+    if _IMAGE_ENGINE != "numpy":
+        raise ValueError(f"SDIRT_IMAGE_ENGINE={_IMAGE_ENGINE!r}: one of {ENGINES}")
+    return read_exr(path)
+
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}       # colour type -> samples per pixel
@@ -552,7 +585,7 @@ class FlyingThings3D:
     def __getitem__(self, index, rng=None):
         rng = item_rng(0, index) if rng is None else rng
         scene = f"{self.dataset_dir}/{self.scenes[index]}"
-        depth = read_exr(f"{scene}/disp.exr") / self.DEPTH_FACTOR
+        depth = _load_exr(f"{scene}/disp.exr") / self.DEPTH_FACTOR
         depth = _resize_depth(depth, self.resize)
 
         if self.fs_num > 0:
@@ -607,7 +640,7 @@ class MiddleburyFS(Middlebury):
         return load_rgb(f"{self.dataset_dir}/{scene}/AiF.png") / 255.0
 
     def _depth(self, scene):
-        depth = read_exr(f"{self.dataset_dir}/{scene}/disp.exr") / 10.0
+        depth = _load_exr(f"{self.dataset_dir}/{scene}/disp.exr") / 10.0
         depth[depth < 0] = 0
         return depth
 
@@ -658,10 +691,20 @@ class DataLoader:
     yielded in that order whatever thread finishes first: worker w builds
     batches w, w + n, ..., at most ``2 * num_workers`` ahead of the
     consumer. A worker's exception is raised in the consumer. Item j is
-    read as ``dataset.__getitem__(j, item_rng(seed, j))``."""
+    read as ``dataset.__getitem__(j, item_rng(seed, j))``.
+
+    shard=(index, count): yield only slice ``index`` of ``count`` equal
+    slices of every batch (a data-parallel rank's share, parallel/mesh.py):
+    every rank builds the same order from the seed, so the ranks together
+    read exactly the unsharded loader's batches. Needs drop_last and a
+    batch size that divides by count."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=4,
-                 drop_last=False, seed=0):
+                 drop_last=False, seed=0, shard=None):
+        if shard is not None and (not drop_last or batch_size % shard[1]):
+            raise ValueError(f"shard {shard} needs drop_last and a batch size "
+                             f"that divides by {shard[1]}, got {batch_size}")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -681,6 +724,10 @@ class DataLoader:
         batches = [idx[i:i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.shard is not None:
+            index, count = self.shard
+            per = self.batch_size // count
+            batches = [b[index * per:(index + 1) * per] for b in batches]
 
         ahead = 2 * self.num_workers
         cond = threading.Condition()

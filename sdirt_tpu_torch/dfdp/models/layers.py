@@ -29,6 +29,15 @@ class BatchNorm(nn.Module):
     Parameters and buffers carry torch's names (weight, bias, running_mean,
     running_var), which utils/weights.py maps to Flax's scale, bias, mean,
     var.
+
+    ``group`` (set by sync_batchnorm): a torch.distributed group over which
+    train mode's batch moments are taken. The counts, the sums of x and
+    then those of (x - mean)^2 are all_reduced with autograd, so each rank
+    normalises with the moments of the whole batch and the gradient flows
+    through them, as in the JAX data-parallel step, where XLA reduces the
+    moments. The variance is taken about the mean (two passes), as
+    F.batch_norm takes it: E[x^2] - E[x]^2 in f32 loses ~1e-4 of a loss to
+    cancellation where a channel's mean is large against its spread.
     """
 
     EPS, MOMENTUM = 1e-5, 0.9
@@ -39,22 +48,54 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.EPS)
+        dims = [0] + list(range(2, x.dim()))
+        if self.group is not None:
+            return self._forward_synced(x, dims)
         out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                            self.EPS)
         with torch.no_grad():
-            dims = [0] + list(range(2, x.dim()))
             xs = x.detach().to(torch.promote_types(x.dtype, torch.float32))
             mean = xs.mean(dims)
             var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
-            m = self.MOMENTUM
-            self.running_mean.mul_(m).add_((1 - m) * mean)
-            self.running_var.mul_(m).add_((1 - m) * var)
+            self._update(mean, var)
         return out
+
+    def _forward_synced(self, x, dims):
+        from ...parallel.mesh import all_reduce_autograd as all_reduce
+
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = all_reduce(torch.tensor(float(x.numel() // x.shape[1]),
+                                        dtype=xs.dtype, device=x.device),
+                           group=self.group)
+        mean = all_reduce(xs.sum(dims), group=self.group) / count
+        xc = xs - mean.view(shape)
+        var = all_reduce((xc * xc).sum(dims), group=self.group) / count
+        with torch.no_grad():
+            self._update(mean.detach(), var.detach())
+        out = (xc * torch.rsqrt(var.view(shape) + self.EPS) * self.weight.view(shape)
+               + self.bias.view(shape))
+        return out.to(x.dtype)
+
+    def _update(self, mean, var):
+        m = self.MOMENTUM
+        self.running_mean.mul_(m).add_((1 - m) * mean)
+        self.running_var.mul_(m).add_((1 - m) * var)
+
+
+def sync_batchnorm(net: nn.Module, group) -> nn.Module:
+    """Take every BatchNorm's train-mode moments over ``group`` (None: this
+    rank's batch alone)."""
+    for m in net.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return net
 
 
 def resize_linear_align_corners(x, out_sizes: Sequence[int],

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from ..parallel.mesh import all_reduce_autograd, average_gradients
 from ..psfnet.train import ADAMW, cosine_annealing
 from .basenet import compute_loss, linear_depth
 
@@ -51,29 +52,42 @@ def clip_by_global_norm_(grads, max_norm: float = MAX_GRAD_NORM):
     return norm
 
 
-def dfdp_grads(net, stack_rgb, gt_depth, gt_aif=None):
+def dfdp_grads(net, stack_rgb, gt_depth, gt_aif=None, data_group=None):
     """Forward in train mode (one BN statistics update) and backward of the
     net's loss: the masked SmoothL1 log-depth loss, and in deblur mode its
     three-term loss against the all-in-focus ``gt_aif`` [B, 3, H, W].
     Returns the loss dict (detached); the gradients are left in the
-    parameters' ``.grad``."""
+    parameters' ``.grad``.
+
+    data_group: the batch is this rank's slice; the loss's sums are
+    all_reduced over the group with autograd, so every rank computes the
+    loss of the whole batch. Each all_reduce's backward sums the group's
+    identical seeds, so a rank's gradient is the group size times its
+    share, and the group's mean of the gradients (dfdp_train_step) is the
+    whole batch's gradient."""
     gt_log, mask = linear_depth(gt_depth)
     for p in net.parameters():
         p.grad = None
+    total = None
+    if data_group is not None:
+        total = lambda t: all_reduce_autograd(t, data_group)  # noqa: E731
     losses = compute_loss(net(stack_rgb), gt_log, mask, gt_aif,
-                          net.train_mode)
+                          net.train_mode, total=total)
     losses["total"].backward()
     return {k: v.detach() for k, v in losses.items()}
 
 
 def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth,
-                    gt_aif=None) -> dict:
+                    gt_aif=None, data_group=None) -> dict:
     """One optimisation step on a rendered DP batch.
 
     stack_rgb: [B, 6V, H, W]; gt_depth: [B, 1, H, W] metres; gt_aif:
     [B, 3, H, W], the all-in-focus image (deblur mode only). Returns the
-    loss dict of 0-d tensors (not synchronised)."""
-    losses = dfdp_grads(state.net, stack_rgb, gt_depth, gt_aif)
+    loss dict of 0-d tensors (not synchronised). data_group: the data
+    ranks of a data-parallel step (parallel/steps.py), whose gradients are
+    averaged before the clip."""
+    losses = dfdp_grads(state.net, stack_rgb, gt_depth, gt_aif, data_group)
+    average_gradients(state.net.parameters(), data_group)
     clip_by_global_norm_([p.grad for p in state.net.parameters()])
     state.opt.step()
     state.sched.step()

@@ -42,7 +42,14 @@ scan, fused, fused_int8, basis, basis_int8), else the port's default
 ``fused_int8``. Matrix products and convolutions run in full f32 (TF32 off).
 The evaluation stages write ``DPimages/res.csv`` (flat scores: PSNR, SSIM
 and the weight-free perceptual distance per view) and ``depth.csv`` under
-``--out``. Not ported yet (ROADMAP.md §1): ``--data-parallel`` (item 3).
+``--out``.
+
+--data-parallel (or the config key ``data_parallel``) trains over
+n_data processes, one card each (NCCL), n_data the largest divisor of bs
+not above the number of cards: every rank reads its slice of the same
+batches, renders it through K2 and takes the data-parallel step
+(parallel/steps.py); rank 0 validates and writes the checkpoints and the
+images while the others wait. With one card it trains on that card.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .dfdp.basenet import build_basenet
 from .dfdp.datasets import DataLoader
@@ -68,6 +76,7 @@ from .dfdp.metrics import mask_psnr, mask_ssim
 from .dfdp.perceptual import batch_perceptual
 from .dfdp.monitor import DEPTH_METRICS, ResultsMonitor, select_focus_dist
 from .dfdp.train import create_dfdp_state, dfdp_infer, dfdp_train_step
+from .parallel.mesh import broadcast_module, launch, make_mesh
 from .render.pipeline import resolve_variant
 from .utils.checkpoint import (TrainCheckpointer, read_ckpt_watermark,
                                save_inference_ckpt, write_ckpt_watermark)
@@ -75,8 +84,6 @@ from .utils.config import load_config
 from .utils.device import resolve_device
 from .utils.logging import host_rss_gb, set_logger, set_seed
 from .utils.stall import StallWatchdog
-
-NOT_PORTED = "{what} is not ported yet (ROADMAP.md §1 item {item})"
 
 FLAT_COLUMNS = ("idx", "distance_mm", "psnr_l", "psnr_r", "ssim_l", "ssim_r",
                 "perc_l", "perc_r")
@@ -236,19 +243,36 @@ def _ms(start, end) -> float:
     return start.elapsed_time(end)
 
 
-def train(args, device="cuda") -> dict:
+def data_parallel_ranks(bs: int, n_cards: int) -> int:
+    """The largest divisor of bs that is at most the number of cards."""
+    return max(d for d in range(1, min(n_cards, bs) + 1) if bs % d == 0)
+
+
+def train(args, device="cuda", mesh=None) -> dict:
     """``--stage train``. Returns {"state", "start_epoch", "epochs_trained",
     "best_acc1", "val": [per-epoch metrics], "losses": [per step total],
     "loss_terms": [per step, every term of the loss],
     "steps": [per-step timings], "epoch_seconds": [per trained epoch]}:
     each step's timing holds the host's wait for the batch (s), the render
     and the train step (ms; CUDA events on the card); an epoch's seconds
-    run from its loader's start to its last loss on the host."""
-    if args.get("data_parallel"):
-        raise NotImplementedError(NOT_PORTED.format(what="data-parallel training",
-                                                    item=3))
+    run from its loader's start to its last loss on the host.
+
+    ``args["data_parallel"]`` on more than one card launches one rank per
+    card (train_rank) and returns rank 0's results without "state", with
+    "k2_launches" per rank; ``mesh`` is the rank's (parallel.mesh.Mesh)."""
     train_mode = args.get("train_mode", "dfdp")
     dev = resolve_device(device)
+    if args.get("data_parallel") and mesh is None:
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+        n_data = data_parallel_ranks(args["bs"], n_cards)
+        if n_data > 1:
+            logging.info(f"data-parallel training over {n_data} devices")
+            outs = launch(train_rank, n_data, device="cuda", args=(args,),
+                          timeout=30 * 24 * 3600.0)
+            return {**outs[0], "k2_launches": [o["k2_launches"] for o in outs]}
+        logging.info("data_parallel requested but only one usable device; "
+                     "running single-chip")
+    chief = mesh is None or mesh.rank == 0
     wd = StallWatchdog(timeout_s=float(args.get("stall_timeout_s", 1800)))
     train_lens, test_lens = get_lens(args, device=dev)
     nyu_fs_train, nyu_train, val_set = get_dataset(args)
@@ -272,7 +296,13 @@ def train(args, device="cuda") -> dict:
 
             load_state(state.net, path)
             logging.info(f"warm start from {path}")
-    box_set = get_depth_test_set(args)[0]
+    step_fn = dfdp_train_step
+    if mesh is not None:
+        from .parallel.steps import make_sharded_dfdp_step
+
+        broadcast_module(state.net)
+        step_fn = make_sharded_dfdp_step(mesh, train_mode)
+    box_set = get_depth_test_set(args)[0] if chief else None
 
     ckpt_out = args.get("ckpt_out")
     best_acc1 = -1.0
@@ -304,7 +334,7 @@ def train(args, device="cuda") -> dict:
                          f"banked checkpoint {ckpt_out}")
 
     def write_meta():
-        if not state_dir:
+        if not state_dir or not chief:
             return
         tmp = os.path.join(state_dir, "train_meta.json.tmp")
         with open(tmp, "w") as f:
@@ -318,30 +348,38 @@ def train(args, device="cuda") -> dict:
     cuda = dev.type == "cuda"
     for epoch in range(resume_epoch, args["epochs"] + 1):
         # epoch-keyed noise: the same draws whether or not the run resumed
-        generator = torch.Generator(device=dev).manual_seed(1_000_003 + epoch)
+        # (and per data rank: each renders other samples)
+        rank_seed = 0 if mesh is None else 1_000_033 * mesh.data_index
+        generator = torch.Generator(device=dev).manual_seed(1_000_003 + epoch
+                                                            + rank_seed)
         wd.beat()
-        val_metrics = validate(state.net, test_lens, val_set, "fs", args, epoch)
-        out["val"].append(val_metrics)
-        wd.beat()
-        if n_views == 1:
-            test_depth(state.net, box_set, dev, "box", epoch, args)
-        elif epoch == resume_epoch:
-            logging.info(MULTI_FOCUS_SKIP)
-        wd.beat()
-        if ckpt_out and val_metrics["acc1"] > best_acc1:
-            best_acc1 = val_metrics["acc1"]
-            save_inference_ckpt(ckpt_out, state.net)
-            write_ckpt_watermark(ckpt_out, best_acc1)
-            write_meta()
-            logging.info(f"ckpt_out: saved epoch {epoch} "
-                         f"(val acc1 {best_acc1:.4f}) -> {ckpt_out}")
-        logging.info("")
+        if chief:
+            val_metrics = validate(state.net, test_lens, val_set, "fs", args, epoch)
+            out["val"].append(val_metrics)
+            wd.beat()
+            if n_views == 1:
+                test_depth(state.net, box_set, dev, "box", epoch, args)
+            elif epoch == resume_epoch:
+                logging.info(MULTI_FOCUS_SKIP)
+            wd.beat()
+            if ckpt_out and val_metrics["acc1"] > best_acc1:
+                best_acc1 = val_metrics["acc1"]
+                save_inference_ckpt(ckpt_out, state.net)
+                write_ckpt_watermark(ckpt_out, best_acc1)
+                write_meta()
+                logging.info(f"ckpt_out: saved epoch {epoch} "
+                             f"(val acc1 {best_acc1:.4f}) -> {ckpt_out}")
+            logging.info("")
+        if mesh is not None:
+            dist.barrier()
         if epoch == args["epochs"]:
             break
 
         dataset = nyu_fs_train if epoch <= args["epochs"] // 2 else nyu_train
         loader = DataLoader(dataset, batch_size=args["bs"], shuffle=True,
-                            num_workers=4, drop_last=True, seed=epoch)
+                            num_workers=4, drop_last=True, seed=epoch,
+                            shard=None if mesh is None else (mesh.data_index,
+                                                             mesh.n_data))
         epoch_loss, n_steps, t0 = 0.0, 0, time.perf_counter()
         pending, timing = [], []
 
@@ -368,9 +406,8 @@ def train(args, device="cuda") -> dict:
             stack, depth_dev, aif_dev = _render_batch(train_lens, *batch,
                                                       generator, train=True)
             m1 = _mark(cuda)
-            losses = dfdp_train_step(
-                state, stack, depth_dev,
-                aif_dev if train_mode == "deblur" else None)
+            losses = step_fn(state, stack, depth_dev,
+                             aif_dev if train_mode == "deblur" else None)
             timing.append((t_wait, m0, m1, _mark(cuda)))
             pending.append(losses)
             n_steps += 1
@@ -387,10 +424,13 @@ def train(args, device="cuda") -> dict:
         logging.info(f"Epoch {epoch}: train loss {epoch_loss / max(n_steps, 1):.4f} "
                      f"({n_steps} steps, {out['epoch_seconds'][-1]:.1f}s)")
         wd.beat()
-        if tc is not None:
+        if tc is not None and chief:
             tc.save(epoch + 1, state)
             tc.wait()
             write_meta()
+        if mesh is not None:
+            dist.barrier()
+        elif tc is not None:
             wd.beat()
             rss = host_rss_gb()
             logging.info(f"host RSS {rss:.1f} GiB")
@@ -411,6 +451,19 @@ def train(args, device="cuda") -> dict:
         tc.close()
     out["best_acc1"] = best_acc1
     return out
+
+
+def train_rank(rank, world, dev, args):
+    """One rank of data-parallel training (launched by train)."""
+    from .render import fused_conv
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING,
+                        format="%(asctime)s - %(message)s")
+    out = train(args, device=dev, mesh=make_mesh(world, 1))
+    out.pop("state")
+    return {**out, "k2_launches": fused_conv.launches}
 
 
 def _depth_net(args, dev, n_views: int = 1):
@@ -497,16 +550,15 @@ def main(argv=None) -> dict:
                     help="write each validation and test frame's RGB views "
                          "and JET depth maps under --out")
     ap.add_argument("--data-parallel", action="store_true",
-                    help=NOT_PORTED.format(what="data-parallel training", item=3))
+                    help="train over one process per card (the largest divisor "
+                         "of bs not above the card count), NCCL")
     cli = ap.parse_args(argv)
-    if cli.data_parallel:
-        raise NotImplementedError(NOT_PORTED.format(what="--data-parallel",
-                                                    item=3))
     resolve_device(cli.device)
     args = load_config(cli.config)
     out = cli.out or ("./results/" + datetime.now().strftime("%m%d-%H%M%S")
                       + "-Sdirt_torch")
-    args.update(results_dir=out, train_mode=cli.train_mode, save_images=cli.save_images)
+    args.update(results_dir=out, train_mode=cli.train_mode, save_images=cli.save_images,
+                data_parallel=cli.data_parallel or args.get("data_parallel", False))
     os.makedirs(out, exist_ok=True)
     set_logger(out)
     set_seed(123456)

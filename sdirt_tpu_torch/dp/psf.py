@@ -15,6 +15,7 @@ generator repeats, so the tests hand both packages the same samples.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..core.constants import GEO_SPP, WAVE_RGB
 from ..optics.sampling import sample_from_points
@@ -78,12 +79,18 @@ def dp_psf(stack, eta, skip, points_norm, generator, scalars, *, spp: int,
 def dp_psf_fused(points_norm, generator, scalars, plan, *, spp: int, ks: int,
                  spp_chief: int = GEO_SPP, center: bool = True,
                  dp_params: DPParams = DPParams(), chunk: int = 2048,
-                 pupil_main=None, pupil_chief=None, trace=None):
+                 pupil_main=None, pupil_chief=None, trace=None, rays_group=None):
     """dp_psf with both traces (chief and main bundle) through K1.
 
     plan: fused_trace.make_fused_plan(lens) (surfaces + per-surface eta).
     trace: K1's wrapper by default; the check on the card passes the plain
     version (fused_trace.fused_trace_sensor_ref) to compare the two.
+    rays_group: a torch.distributed group over which the main bundle's rays
+    are split (parallel/steps.py). Every rank draws the same spp pupil
+    samples and traces its contiguous share of them; the raw splat grids
+    are summed over the group before the max-normalisation, so every rank
+    returns the PSFs of all spp rays. The chief bundle is traced whole on
+    every rank, as the JAX package leaves it unsharded.
     """
     from .fused_trace import fused_trace_sensor
 
@@ -108,6 +115,14 @@ def dp_psf_fused(points_norm, generator, scalars, plan, *, spp: int, ks: int,
                               points_norm[:, 1] * scalars["sensor_h"] / 2], dim=-1)
 
     rays = sample_from_points(point_obj, spp, pupilz, pupilr, generator, pupil_main)
+    if rays_group is not None:
+        n, r = dist.get_world_size(rays_group), dist.get_rank(rays_group)
+        if spp % n:
+            raise ValueError(f"{spp} rays do not split over {n} rays ranks")
+        share = spp // n
+        rays = rays.replace(o=rays.o[r * share:(r + 1) * share],
+                            d=rays.d[r * share:(r + 1) * share],
+                            ra=rays.ra[r * share:(r + 1) * share])
     px, py, x_tan, ra = trace(rays, d_sensor, plan)
 
     # forward_integral's body on the pre-flipped outputs
@@ -120,6 +135,8 @@ def dp_psf_fused(points_norm, generator, scalars, plan, *, spp: int, ks: int,
     w_l, w_r = dp_split_weights(x_tan, dp_params)
     weights = torch.stack([w_l * ra_m, w_r * ra_m], dim=0)
     psf = splat_matmul(shifted, weights, ks, ps, chunk=chunk)
+    if rays_group is not None:
+        dist.all_reduce(psf, group=rays_group)
     return _max_norm(psf[0]), _max_norm(psf[1])
 
 

@@ -19,7 +19,11 @@ PSFs) and its panels ``compare_<depth>_v0*.png``. Matrix products run in
 full f32: TF32 is switched off, as the JAX code asks for
 ``Precision.HIGHEST``.
 
-Not ported yet (ROADMAP.md §1): the multi-chip ``--mesh``.
+``--mesh DATA RAYS`` fits over DATA x RAYS processes, one card each
+(NCCL; gloo with ``--device cpu``): the field points split over DATA, the
+Monte-Carlo rays of every step's main bundle over RAYS, their splat grids
+summed (parallel/steps.py); bs must divide by DATA. Rank 0 runs the
+analysis, logs, writes the checkpoints and the net and compares the PSFs.
 """
 
 from __future__ import annotations
@@ -33,11 +37,10 @@ from datetime import datetime
 import torch
 
 from .optics.analysis import analysis
+from .parallel.mesh import launch, make_mesh
 from .psfnet.surrogate import PSFNetLens
 from .psfnet.train import fit_psfnet
 from .utils.device import resolve_device
-
-NOT_PORTED = "not ported yet (ROADMAP.md §1 item {item}: {what})"
 
 
 def parse_args(argv=None):
@@ -70,19 +73,51 @@ def parse_args(argv=None):
                     help="resumable train-state checkpoints kept")
     ap.add_argument("--eval-spp", type=int, default=65536)
     ap.add_argument("--mesh", type=int, nargs=2, metavar=("DATA", "RAYS"),
-                    default=None, help=NOT_PORTED.format(item=3, what="multi-GPU"))
+                    default=None,
+                    help="fit over a (data, rays) grid of DATA x RAYS processes, "
+                         "one card each: field points split over DATA, "
+                         "Monte-Carlo rays over RAYS (bs %%%% DATA == 0)")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     """Run the fit; returns {"losses", "evals", "d_sensor", "result_dir",
     "analysis", "seconds"} (losses per step, evals as (step, l1, l2), the
-    RMS radii (avg, on-axis, off-axis) [mm] by analysis depth)."""
+    RMS radii (avg, on-axis, off-axis) [mm] by analysis depth). With
+    ``--mesh`` these are rank 0's, and "k1_launches" lists every rank's K1
+    launches."""
     args = parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError("--mesh: " + NOT_PORTED.format(item=3,
-                                                                 what="multi-GPU"))
+    if args.mesh is None:
+        return run(args, resolve_device(args.device))
+    n_data, n_rays = args.mesh
+    world = n_data * n_rays
+    if args.bs % n_data:
+        raise ValueError(f"--mesh: bs {args.bs} does not split over {n_data} data ranks")
     device = resolve_device(args.device)
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise ValueError(f"--mesh {n_data} {n_rays} needs {world} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    result_dir = args.result_dir or (
+        "./results/" + datetime.now().strftime("%m%d-%H%M%S") + "-psfnet_torch")
+    args.result_dir = result_dir
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s - %(message)s")
+    logging.info(f"multi-chip fit over mesh {{'data': {n_data}, 'rays': {n_rays}}}")
+    outs = launch(_mesh_rank, world, device=device.type, args=(args,),
+                  timeout=7 * 24 * 3600.0)
+    return {**outs[0], "k1_launches": [o["k1_launches"] for o in outs]}
+
+
+def _mesh_rank(rank, world, dev, args):
+    from .dp import fused_trace
+
+    out = run(args, dev, make_mesh(*args.mesh))
+    return {**out, "k1_launches": fused_trace.launches}
+
+
+def run(args, device, mesh=None) -> dict:
+    """The fit of main() on ``device``, over ``mesh`` (parallel.mesh.Mesh)
+    when given."""
+    chief = mesh is None or mesh.rank == 0
     # full-f32 matrix products in the splat and the MLP
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -105,11 +140,12 @@ def main(argv=None) -> dict:
     if args.focus_mm != -1000.0:
         # re-centre the training-z sampler and eval band on the new focus
         lens.set_focus_prior(args.focus_mm)
-    lens.write_lens_json(f"{result_dir}/lens.json")
+    if chief:
+        lens.write_lens_json(f"{result_dir}/lens.json")
     logging.info(f"d_sensor: {lens.d_sensor}")
 
     rms, t_analysis = {}, {}
-    if not args.skip_analysis:
+    if not args.skip_analysis and chief:
         # at the pinned sensor distance's offsets, as the JAX app does
         for depth0 in (-500, -20000):
             depth = depth0 + d_sensor
@@ -126,9 +162,11 @@ def main(argv=None) -> dict:
                      spp=args.spp, evaluate_every=args.evaluate_every,
                      result_dir=result_dir, seed=args.seed, log_fn=logging.info,
                      resume=args.resume, eval_bs=args.eval_bs,
-                     eval_spp=args.eval_spp, keep_states=args.keep_states)
+                     eval_spp=args.eval_spp, keep_states=args.keep_states,
+                     mesh=mesh)
     t_cmp = time.perf_counter()
-    lens.compare_psf(save_path=f"{result_dir}/compare_psf.npz", save_dir=result_dir)
+    if chief:
+        lens.compare_psf(save_path=f"{result_dir}/compare_psf.npz", save_dir=result_dir)
     t1 = time.perf_counter()
     logging.info("Finish PSF net fitting.")
     return {**fit, "d_sensor": lens.d_sensor, "result_dir": result_dir,

@@ -26,6 +26,7 @@ import torch
 from ..dp.fused_trace import make_fused_plan
 from ..dp.psf import compute_psf_rgb, dp_psf, dp_psf_fused, lens_scalars
 from ..optics.sampling import point_source_grid
+from ..parallel.mesh import all_reduce_mean, average_gradients
 from ..utils.checkpoint import TrainCheckpointer
 from .arch import resize_linear
 
@@ -89,17 +90,20 @@ def training_points(idx: int, ux, uy, g, foc_z_arr, d_min: float, d_max: float):
     return inp, torch.stack([x, y, depth], -1)
 
 
-def fit_step(state: PSFNetTrainState, inp, psf_gt):
+def fit_step(state: PSFNetTrainState, inp, psf_gt, data_group=None):
     """One AdamW step of the MLP on mean((pred - psf_gt)^2); returns the
-    loss (a 0-d tensor, not synchronised)."""
+    loss (a 0-d tensor, not synchronised). With a ``data_group`` (each rank
+    holding an equal share of the points) the gradients and the loss are
+    averaged over it, which gives every rank the step of the whole batch."""
     bs, ks = psf_gt.shape[0], psf_gt.shape[-1]
     state.opt.zero_grad(set_to_none=True)
     loss = torch.mean((state.net(inp).reshape(bs, ks, ks) - psf_gt) ** 2)
     loss.backward()
+    average_gradients(state.net.parameters(), data_group)
     state.opt.step()
     state.sched.step()
     state.step += 1
-    return loss.detach()
+    return all_reduce_mean(loss.detach(), data_group)
 
 
 def trace_mode() -> str:
@@ -192,17 +196,30 @@ def fit_psfnet(lens, iters: int = 10000, bs: int = 128, lr: float = 1e-4,
                spp: int = 2048, evaluate_every: int = 1000,
                result_dir: str | None = None, seed: int = 0, log_fn=print,
                resume: bool = False, eval_bs: int = 1024, eval_spp: int = 65536,
-               keep_states: int = 3) -> dict:
+               keep_states: int = 3, mesh=None) -> dict:
     """The train loop: iters + 1 steps, an evaluation and a checkpoint after
     every step i with (i + 1) % evaluate_every == 0, the net written to
     ``result_dir/psfnet_<model>.npz`` at the end. resume=True restores the
     full train state from the newest checkpoint under result_dir/state.
 
+    mesh: a parallel.mesh.Mesh; the step then splits the field points over
+    its 'data' ranks and the main bundle's rays over its 'rays' ranks
+    (parallel/steps.py), bs must divide by n_data. Every rank draws from the
+    same generator and runs the evaluation (unsharded, as in the JAX
+    package); rank 0 alone logs and writes the checkpoints and the net.
+
     Returns {"losses": [per step], "evals": [(i, l1, l2)], "start": step}.
     """
     state = create_train_state(lens.net, lr, iters)
-    step_fn = make_train_step(lens, bs=bs, spp=spp, ks=lens.kernel_size)
+    if mesh is not None:
+        from ..parallel.steps import make_sharded_psfnet_step
+
+        step_fn = make_sharded_psfnet_step(lens, mesh, bs=bs, spp=spp,
+                                           ks=lens.kernel_size)
+    else:
+        step_fn = make_train_step(lens, bs=bs, spp=spp, ks=lens.kernel_size)
     eval_fn = make_eval_fn(lens, ks=lens.kernel_size, bs=eval_bs, spp=eval_spp)
+    chief = mesh is None or mesh.rank == 0
 
     ckpt = None
     start = 0
@@ -220,12 +237,13 @@ def fit_psfnet(lens, iters: int = 10000, bs: int = 128, lr: float = 1e-4,
         losses.append(step_fn(state, generator))
         if (i + 1) % evaluate_every == 0:
             l1, l2 = (float(v) for v in eval_fn(state.net, generator))
-            log_fn(f"{i}, {l1}, {l2}")
             evals.append((i, l1, l2))
-            if ckpt is not None:
-                ckpt.save(i + 1, state)
+            if chief:
+                log_fn(f"{i}, {l1}, {l2}")
+                if ckpt is not None:
+                    ckpt.save(i + 1, state)
     lens.net.eval()
-    if result_dir is not None:
+    if result_dir is not None and chief:
         lens.save_net(f"{result_dir}/psfnet_{lens.model_name}.npz")
     return {"losses": [float(v) for v in losses], "evals": evals, "start": start}
 

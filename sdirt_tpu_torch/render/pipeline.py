@@ -104,10 +104,20 @@ def query_points(depth, d_sensor, d_min, d_max):
     return torch.stack([x.expand(n, h, w), y.expand(n, h, w), z], dim=-1).float()
 
 
+def _dense_bf16(layer, x):
+    """A Flax Dense in bf16: the product rounded to bf16, then the bias added
+    and rounded again (torch's Linear adds the bias inside the GEMM and
+    rounds once, which moves a linear head's taps by up to ~3e-2)."""
+    return torch.nn.functional.linear(x, layer.weight) + layer.bias
+
+
 def _bf16_fn(net):
     """The network with bf16 weights on bf16 queries, f32 out (the JAX scan
-    path's bf16 MLP)."""
+    path's bf16 MLP), every Linear rounded as a bf16 Flax Dense is."""
     net_b = copy.deepcopy(net).to(torch.bfloat16)
+    for m in net_b.modules():
+        if isinstance(m, torch.nn.Linear) and m.bias is not None:
+            m.forward = functools.partial(_dense_bf16, m)
     return lambda q: net_b(q.to(torch.bfloat16)).float()
 
 

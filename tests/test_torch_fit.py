@@ -211,6 +211,20 @@ def test_fit_psfnet_slice_end_to_end(tmp_path, monkeypatch):
     assert res2["start"] == 4 and len(res2["losses"]) == 2
 
 
-def test_fit_psfnet_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_psfnet.main(["--device", "cpu", "--skip-analysis", "--mesh", "1", "2"])
+def test_fit_psfnet_mesh_1_1_equals_the_plain_fit(tmp_path):
+    """``--mesh 1 1`` on the CPU: one gloo rank in its own process runs the
+    sharded step (parallel/steps.py) and gives the plain fit's losses and
+    evaluations (the same draws, the same trace; the rank's process may run
+    another number of threads, which reorders the f32 sums); its result
+    folder holds the net. A mesh bs does not divide raises."""
+    plain = fit_psfnet.main(FIT_CPU + ["--result-dir", str(tmp_path / "plain")])
+    mesh = fit_psfnet.main(FIT_CPU + ["--mesh", "1", "1",
+                                      "--result-dir", str(tmp_path / "mesh")])
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    assert [e[0] for e in mesh["evals"]] == [e[0] for e in plain["evals"]]
+    np.testing.assert_allclose([e[1:] for e in mesh["evals"]],
+                               [e[1:] for e in plain["evals"]], rtol=1e-5)
+    assert mesh["k1_launches"] == [0]          # the plain version on the CPU
+    assert (tmp_path / "mesh" / "psfnet_mlp.npz").exists()
+    with pytest.raises(ValueError, match="does not split"):
+        fit_psfnet.main(FIT_CPU + ["--mesh", "3", "1"])

@@ -317,3 +317,47 @@ CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yml")))
 def test_config_reader_matches_pyyaml(path):
     # the JAX app's reader is PyYAML's safe_load plus the same two casts
     assert load_config(path) == _jax_app().config(path)
+
+
+# the modules of the last module slice: the basis-student workflow, the
+# multi-GPU paths and the native engine
+MODULES_SLICE = ("distill_basis_student.py", "probe_teacher_l1.py",
+                 "gate_rf35_student.py", "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/steps.py", "parallel/equivalence.py", "native/__init__.py")
+
+
+def test_import_guard_covers_the_modules_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(MODULES_SLICE) <= files
+
+
+STUDENT_TOOLS = {"distill_basis_student": ["--out", "x"], "probe_teacher_l1": [],
+                 "gate_rf35_student": ["--student-ckpt", "x"],
+                 "fit_psfnet": ["--mesh", "1", "1"]}
+
+
+@pytest.mark.parametrize("tool", sorted(STUDENT_TOOLS))
+def test_student_tools_and_mesh_default_to_the_card(monkeypatch, tool):
+    """The distillation, the probe, the gate and the --mesh fit run on the
+    card unless --device names the CPU, and raise without a card instead of
+    falling back."""
+    import importlib
+
+    mod = importlib.import_module(f"sdirt_tpu_torch.{tool}")
+    seen = {}
+
+    def stop(device="cuda"):
+        seen["device"] = device
+        raise SystemExit
+
+    monkeypatch.setattr(mod, "resolve_device", stop)
+    with pytest.raises(SystemExit):
+        mod.main(STUDENT_TOOLS[tool])
+    assert seen == {"device": "cuda"}
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(STUDENT_TOOLS[tool])

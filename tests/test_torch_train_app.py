@@ -142,12 +142,25 @@ def test_full_stage_runs_on_cpu(tmp_path, monkeypatch):
     assert (out / "DPimages" / "res.csv").exists() and (out / "depth.csv").exists()
 
 
-@pytest.mark.parametrize("argv,item", [(["--data-parallel"], "item 3")])
-def test_unported_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        dfdp_net.main(["--stage", "train", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match=item):
-        dfdp_net.train({"data_parallel": True}, device="cpu")
+def test_data_parallel_on_one_device_trains_single_chip(tmp_path, records):
+    """``--data-parallel`` with one device (the CPU counts as one) logs the
+    JAX app's line and trains on it: one epoch of the smoke config cut to
+    2 steps and one validation item."""
+    cfg = load_config(SMOKE)
+    cfg.update(synthetic_len=4, synthetic_val_len=1, results_dir=str(tmp_path),
+               train_mode="dfdp", data_parallel=True)
+    out = dfdp_net.train(cfg, device="cpu")
+    assert ("data_parallel requested but only one usable device; running "
+            "single-chip") in records
+    assert out["epochs_trained"] == 1 and len(out["losses"]) == 2
+    assert all(np.isfinite(out["losses"]))
+
+
+@pytest.mark.parametrize("bs,cards,want", [(4, 1, 1), (4, 2, 2), (4, 3, 2), (4, 8, 4),
+                                           (6, 4, 3), (5, 4, 1)])
+def test_data_parallel_ranks(bs, cards, want):
+    """n_data: the largest divisor of bs not above the card count."""
+    assert dfdp_net.data_parallel_ranks(bs, cards) == want
 
 
 def _flyingthings_tree(root, n, seed):

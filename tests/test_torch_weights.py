@@ -79,7 +79,7 @@ NEW_EXPORTS = [("rf50mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "F4_PSFNet_mlp"),
                ("rf35mm", "F4_PSFNet_mlpb@256x48"), ("rf35mm", "Sdirt_best_acc1"),
                ("rf50mm", "F18_PSFNet_mlp_ks35"), ("rf50mm", "F4_PSFNet_mlp@256"),
                ("rf50mm", "Sdirt_f4_farfield"), ("rf50mm", "Sdirt_f18_farfield"),
-               ("rf50mm", "Sdirt_deblur_demo_cpu")]
+               ("rf50mm", "Sdirt_deblur_demo_cpu"), ("rf35mm", "F4_PSFNet_mlp@256")]
 
 
 def _export_script():
@@ -117,6 +117,33 @@ def test_lens_exports_equal_fresh_export(lens, name):
         from sdirt_tpu_torch.utils.weights import load_state
 
         load_state(build_psfnet(*export.psfnet_arch(name)), path)
+
+
+def test_rf35mm_warm_start_forward_matches_jax():
+    """The rf35mm F4_PSFNet_mlp@256 export (the basis students' warm start
+    and gate_rf35_student's default student): the port's net on it equals
+    the JAX net on its orbax tree, on seeded queries (f32, the MLP's
+    summation order only)."""
+    import torch
+
+    from sdirt_tpu.psfnet.surrogate import PSFNetLens as JaxLens
+    from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+
+    lens = os.path.join(ROOT, "lenses", "rf35mm", "lens_web.json")
+    jax_lens = JaxLens(lens, model_name="mlp@256", kernel_size=21, sensor_res=(512, 768))
+    jax_lens.load_net(os.path.join(ROOT, "ckpt", "rf35mm", "F4_PSFNet_mlp@256"))
+    port = PSFNetLens(lens, model_name="mlp@256", kernel_size=21, sensor_res=(512, 768),
+                      device="cpu")
+    port.load_net(os.path.join(ROOT, "sdirt_tpu_torch", "weights", "rf35mm",
+                               "F4_PSFNet_mlp@256.npz"))
+    rng = np.random.default_rng(35)
+    inp = np.stack([rng.uniform(-1, 1, 256), rng.uniform(-1, 1, 256),
+                    rng.uniform(0, 1, 256)], -1).astype(np.float32)
+    want = np.asarray(jax_lens.net.apply(jax_lens.params, jnp.asarray(inp)))
+    with torch.no_grad():
+        got = port.net(torch.from_numpy(inp)).numpy()
+    assert got.shape == want.shape == (256, 441)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
 
 
 def test_exports_are_what_the_port_loads():
