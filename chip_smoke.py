@@ -161,7 +161,15 @@ Phases, each printing its elapsed seconds:
      shipped net (each rank's half rendered through K2), held to the
      one-rank step on the same samples (1e-6; 1e-4 for the DfDP losses and
      BatchNorm statistics); each step's ms;
- 27. native engine: the C++ EXR decoder (built in phase 1 beside nvcc)
+ 27. native engine (both C++ libraries built in phase 1 beside nvcc, with
+     g++ against zlib alone): the PNG/JPEG loader at each file's own size
+     under NEAREST bit-equal to read_png (the flat l/r PNGs, the orbbec
+     16-bit d.png) and read_jpeg (the 8 NYU JPEGs); its NEAREST and CUBIC
+     resizes and the CanonFlatSet items under the native engine held
+     against the JAX engine's CPU run (native_decode_jax_cpu.npz); load_batch
+     equal to serial decodes; a garbage file raises IOError; host ms per
+     512x768 PNG and 640x480 JPEG decode, native and numpy, and per
+     load_batch of 16 PNGs on all cores and on one; the EXR decoder
      bit-equal to io/exr.py on FlyingThings3D trees as phase 22 writes
      them, the dataset items equal under both engines, host ms per read;
  28. the kernels line, then the card's name and power limit, then the
@@ -2160,31 +2168,136 @@ def multi_gpu_phase(dfdp_net, fit_psfnet, fused_conv, fused_trace, smi):
     return out
 
 
-def native_phase():
-    """Phase 27: the native engine's EXR decoder on FlyingThings3D trees as
-    phase 22 writes them, against io/exr.py, and the dataset engine switch."""
+# the native PNG/JPEG loader against the JAX engine's CPU run
+# (scripts/make_native_reference.py): NEAREST bit-equal; CUBIC within f32
+# rounding of two 4-tap passes, per bit depth of the source; the Canon
+# items within 1e-6, their depth bit-equal
+NATIVE_REF = "sdirt_tpu_torch/reference/native_decode_jax_cpu.npz"
+NATIVE_CUBIC_TOL = {8: 1e-4, 16: 0.03}
+NATIVE_ITEM_TOL = 1e-6
+
+
+def np_max_diff(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def host_ms(fn, reps):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def native_reference_check(native, D):
+    """The loader's NEAREST and CUBIC decodes at 96x144 and 256x384 and the
+    CanonFlatSet items under the native engine at 256x384, against the JAX
+    engine's run on the CPU; returns the largest differences."""
+    ref = np.load(NATIVE_REF)
+    worst = {"nearest": 0.0, "cubic_8bit": 0.0, "cubic_16bit": 0.0, "items": 0.0}
+    for i, rel in enumerate(str(f) for f in ref["files"]):
+        bits = int(ref["bits"][i])
+        for h, w in ((96, 144), (256, 384)):
+            pick = ref[f"pick_{h}x{w}"]
+            for name, interp in (("nearest", native.NEAREST), ("cubic", native.CUBIC)):
+                key = f"d{i}_{h}x{w}_{name}"
+                img, got_bits = native.decode(rel, (h, w), ref[key].shape[0], interp,
+                                              return_bit_depth=True)
+                tol = 0.0 if name == "nearest" else NATIVE_CUBIC_TOL[bits]
+                diff = np_max_diff(img.reshape(img.shape[0], -1)[:, pick], ref[key])
+                if f"full{i}_{h}x{w}_{name}" in ref:
+                    diff = max(diff, np_max_diff(img, ref[f"full{i}_{h}x{w}_{name}"]))
+                mean = np_max_diff(img.astype(np.float64).sum((1, 2)), ref[f"{key}_sum"]) / (h * w)
+                kind = name if name == "nearest" else f"cubic_{bits}bit"
+                worst[kind] = max(worst[kind], diff)
+                if got_bits != bits or not (diff <= tol and mean <= tol):
+                    raise RuntimeError(f"native decode of {rel} at {h}x{w} ({name}) is "
+                                       f"{diff:.3e} (mean {mean:.3e}) from the JAX engine")
+    D.set_image_engine("native")
+    ds = D.CanonFlatSet("real_sample_set/flat", resize=(256, 384))
+    pick = ref["pick_256x384"]
+    for k in range(len(ds)):
+        for j, arr in enumerate(ds[k]):
+            flat = arr.reshape(arr.shape[0], -1)
+            diff = max(np_max_diff(flat[:, pick], ref[f"item{k}_{j}"]),
+                       np_max_diff(arr.astype(np.float64).sum((1, 2)),
+                                ref[f"item{k}_{j}_sum"]) / flat.shape[1])
+            tol = NATIVE_ITEM_TOL
+            if j == 2:
+                diff, tol = np_max_diff(arr, ref[f"item{k}_{j}_full"]), 0.0
+            worst["items"] = max(worst["items"], diff)
+            if not diff <= tol:
+                raise RuntimeError(f"CanonFlatSet item {k} array {j} under the native "
+                                   f"engine is {diff:.3e} from the JAX loader's")
+    return worst
+
+
+def native_phase(smi):
+    """Phase 27: the native engine: its PNG/JPEG loader against the numpy
+    decoders and the JAX engine's CPU run, load_batch, a bad file, host
+    times; its EXR decoder on FlyingThings3D trees as phase 22 writes them,
+    against io/exr.py, and the dataset engine switch."""
     from sdirt_tpu_torch import native
     from sdirt_tpu_torch.dfdp import datasets as D
     from sdirt_tpu_torch.io.exr import read_exr
+    from sdirt_tpu_torch.io.jpeg import read_jpeg
 
     out = {"build_seconds": native.build_seconds}
-    print("native engine: the card's machine has zlib.h but neither jpeglib.h nor png.h, "
-          "so only the EXR decoder (sdirt_exr.cc) is built; the PNG/JPEG decode, "
-          "load_batch and the --stage sample check wait for those headers (ROADMAP.md)")
+    pngs = sorted(glob.glob("real_sample_set/flat/**/*.png", recursive=True))
+    jpgs = sorted(glob.glob("sdirt_tpu_torch/reference/datasets/nyu2_train/*/*.jpg"))
+    depth16 = "real_sample_set/casual/orbbec/001/d.png"
+    # at the file's own size under NEAREST: the numpy decoders' samples
+    for p in pngs + [depth16] + jpgs:
+        s = D.read_png(p) if p.endswith(".png") else read_jpeg(p)
+        want = np.moveaxis(s[..., None] if s.ndim == 2 else s, -1, 0).astype(np.float32)
+        got = native.decode(p, s.shape[:2], want.shape[0], native.NEAREST)
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"the native decode of {p} differs from the numpy decoder's")
+    try:
+        out["vs_jax_engine"] = native_reference_check(native, D)
+    finally:
+        D.set_image_engine("numpy")
+    batch = pngs + pngs
+    for interp in (native.NEAREST, native.CUBIC):
+        got = native.load_batch(batch, (256, 384), 3, interp)
+        if not all(np.array_equal(g, native.decode(p, (256, 384), 3, interp))
+                   for g, p in zip(got, batch)):
+            raise RuntimeError("native.load_batch differs from serial decodes")
+    with tempfile.TemporaryDirectory() as tmp:
+        bad = os.path.join(tmp, "garbage.jpg")
+        with open(bad, "wb") as f:
+            f.write(b"\xff\xd8" + np.random.default_rng(0).bytes(4096))
+        try:
+            native.decode(bad, (64, 96))
+            raise RuntimeError("the native loader decoded a garbage file")
+        except IOError:
+            pass
+    n_threads = os.cpu_count() or 1
+    out["host_ms"] = {
+        "png_512x768_native": host_ms(lambda: native.decode(pngs[0], (512, 768)), 5),
+        "png_512x768_numpy": host_ms(lambda: D.read_png(pngs[0]), 3),
+        "jpeg_640x480_native": host_ms(lambda: native.decode(jpgs[0], (480, 640)), 5),
+        "jpeg_640x480_numpy": host_ms(lambda: read_jpeg(jpgs[0]), 2),
+        f"load_batch_16_png_512x768_{n_threads}_threads": host_ms(
+            lambda: native.load_batch(batch, (512, 768), n_threads=n_threads), 3),
+        "load_batch_16_png_512x768_1_thread": host_ms(
+            lambda: native.load_batch(batch, (512, 768), n_threads=1), 2)}
+    worst = out["vs_jax_engine"]
+    print(f"native loader (g++, zlib only): NEAREST bit-equal to read_png on {len(pngs)} flat "
+          f"l/r PNGs and the 16-bit orbbec d.png, to read_jpeg on {len(jpgs)} NYU JPEGs; "
+          f"against the JAX engine's CPU run: NEAREST {worst['nearest']:.3e}, CUBIC "
+          f"{worst['cubic_8bit']:.3e} (8-bit), {worst['cubic_16bit']:.3e} (16-bit), "
+          f"CanonFlatSet items {worst['items']:.3e}; load_batch equal to serial decodes; "
+          "a garbage file raised IOError")
+    for what, ms in out["host_ms"].items():
+        print(f"native loader host ms, {what}: {ms:.2f} ({smi})")
     with tempfile.TemporaryDirectory() as tmp:
         root = write_ft3d_tree(os.path.join(tmp, "ft3d"), 2, 11)
         exrs = sorted(glob.glob(os.path.join(root, "*", "disp.exr")))
         for p in exrs:
             if not np.array_equal(native.decode_exr(p), read_exr(p)):
                 raise RuntimeError(f"the native EXR decode differs from io/exr.py on {p}")
-        t0 = time.perf_counter()
-        for _ in range(5):
-            native.decode_exr(exrs[0])
-        out["native_exr_ms"] = (time.perf_counter() - t0) / 5 * 1e3
-        t0 = time.perf_counter()
-        for _ in range(5):
-            read_exr(exrs[0])
-        out["numpy_exr_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        out["native_exr_ms"] = host_ms(lambda: native.decode_exr(exrs[0]), 5)
+        out["numpy_exr_ms"] = host_ms(lambda: read_exr(exrs[0]), 5)
         items = {}
         for engine in ("numpy", "native"):
             D.set_image_engine(engine)
@@ -2196,11 +2309,10 @@ def native_phase():
     print(f"native EXR decode bit-equal to io/exr.py on {len(exrs)} 960x540 disp.exr "
           f"(ZIP); FlyingThings3D items equal under both engines: {same}; host ms per "
           f"EXR read: native {out['native_exr_ms']:.2f}, numpy {out['numpy_exr_ms']:.2f} "
-          f"(built in {out['build_seconds']:.2f} s beside nvcc)")
+          f"(both libraries built in {out['build_seconds']:.2f} s beside nvcc)")
     if not same:
         raise RuntimeError("the native engine's items differ from the numpy engine's")
     return out
-
 
 
 def main():
@@ -2260,7 +2372,8 @@ def main():
     if "error" in native_build or native_thread.is_alive():
         raise RuntimeError(f"the native engine did not build: {native_build.get('error')}")
     print(f"nvcc: {len(kernels.SOURCES)} sources in parallel, "
-          f"{kernels.build_seconds:.2f} s; g++ (native EXR decoder) beside them, "
+          f"{kernels.build_seconds:.2f} s; g++ (native EXR decoder and PNG/JPEG "
+          f"loader) beside them, "
           f"{native.build_seconds:.2f} s")
     for src, log in kernels.build_log.items():
         for line in log.splitlines():
@@ -2626,7 +2739,7 @@ def main():
 
     # -- 27. the native engine ----------------------------------------------------------
     t = time.perf_counter()
-    native_stats = native_phase()
+    native_stats = native_phase(smi)
     phase("27 native engine", t)
 
     # -- 28. result ----------------------------------------------------------

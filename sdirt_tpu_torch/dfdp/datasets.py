@@ -33,15 +33,21 @@ index in the loader's dataset; an item read directly without one is seeded
 from its index alone. A ``RandomState`` seeded like the global one gives
 the JAX loader's draws.
 
-The EXR engine (``SDIRT_IMAGE_ENGINE`` / ``set_image_engine``) is ``numpy``
-(the default, ``io/exr.py``) or ``native`` (the C++ decoder of
-``sdirt_tpu_torch/native``, bit-identical). It applies where the JAX
-package's ``native`` engine reads EXRs: FlyingThings3D's and
-Middlebury-FS's ``disp.exr``. The JAX engine also decodes the Canon sets'
-l/r views in C++; the port's ``native/`` has no image decoder (the card's
-machine lacks the libjpeg and libpng headers), so those views are read by
-the numpy decoders under either engine. Asking for ``native`` where the
-library cannot be built raises.
+The image engine (``SDIRT_IMAGE_ENGINE`` / ``set_image_engine``) is
+``numpy`` (the default) or ``native`` (the C++ decoders of
+``sdirt_tpu_torch/native``, built with g++ against zlib alone). It applies
+where the JAX package's ``native`` engine applies:
+
+  * FlyingThings3D's and Middlebury-FS's ``disp.exr``: the C++ EXR decoder,
+    bit-identical to ``io/exr.py``;
+  * the Canon sets' l/r views (``_load_rgb_chw``): the C++ PNG/JPEG decode
+    with the JAX engine's fused Catmull-Rom resize (not the numpy engine's
+    antialiased bicubic), 16-bit files taken to their high byte, as the JAX
+    engine does.
+
+The depth PNGs and the NYU, FlyingThings3D and Middlebury colour frames stay
+on the numpy decoders under either engine, as they stay on cv2 in the JAX
+package. Asking for ``native`` where the library cannot be built raises.
 """
 
 from __future__ import annotations
@@ -65,21 +71,25 @@ _IMAGE_ENGINE = os.environ.get("SDIRT_IMAGE_ENGINE", "numpy")
 
 
 def set_image_engine(engine: str):
-    """Select the EXR decoder: ``numpy`` or ``native``."""
+    """Select the image engine: ``numpy`` or ``native``."""
     global _IMAGE_ENGINE
     if engine not in ENGINES:
         raise ValueError(f"image engine {engine!r}: one of {ENGINES}")
     _IMAGE_ENGINE = engine
 
 
+def _engine() -> str:
+    if _IMAGE_ENGINE not in ENGINES:
+        raise ValueError(f"SDIRT_IMAGE_ENGINE={_IMAGE_ENGINE!r}: one of {ENGINES}")
+    return _IMAGE_ENGINE
+
+
 def _load_exr(path):
     """A float EXR through the selected engine (both give the same bits)."""
-    if _IMAGE_ENGINE == "native":
+    if _engine() == "native":
         from .. import native
 
         return native.decode_exr(path)
-    if _IMAGE_ENGINE != "numpy":
-        raise ValueError(f"SDIRT_IMAGE_ENGINE={_IMAGE_ENGINE!r}: one of {ENGINES}")
     return read_exr(path)
 
 
@@ -301,7 +311,21 @@ def resize_bicubic(img: np.ndarray, hw) -> np.ndarray:
 
 
 def _load_rgb_chw(path, resize):
-    """[3, H, W] float32 in [0, 1], bicubic-resized to ``resize``."""
+    """[3, H, W] float32 in [0, 1], bicubic-resized to ``resize``: under the
+    numpy engine decoded by ``load_rgb`` and resized by ``resize_bicubic``;
+    under ``native`` decoded and Catmull-Rom-resized in C++, 16-bit files
+    floored to their high byte (sdirt_tpu/dfdp/datasets.py:82-95)."""
+    if _engine() == "native":
+        from .. import native
+
+        if resize is None:
+            raise ValueError("SDIRT_IMAGE_ENGINE=native reads the Canon views at a "
+                             "resize (H, W); this set has none")
+        img, bits = native.decode(path, resize, channels=3, interp=native.CUBIC,
+                                  return_bit_depth=True)
+        if bits == 16:
+            img = np.floor(img / 256.0)
+        return img.clip(0, 255) / np.float32(255.0)
     img = (load_rgb(path).astype(np.float64) / 255.0).astype(np.float32)
     if resize is not None:
         img = resize_bicubic(img, resize)
@@ -331,9 +355,10 @@ def _require_scenes(scenes, dataset_dir, cls):
 
 # The Canon depth sets are decoded once per process: a box scene's d.png is
 # a 24-MP RGBA PNG that read_png takes seconds to decode, and training
-# evaluates the box set every epoch. Items are kept per resolution, the
-# full-size box depth across resolutions; the keys hold the files' sizes
-# and mtimes, so a rewritten file is read again.
+# evaluates the box set every epoch. Items are kept per resolution and image
+# engine (the engines resize the l/r views differently), the full-size box
+# depth across both; the keys hold the files' sizes and mtimes, so a
+# rewritten file is read again.
 _DEPTH_ITEMS: dict = {}
 _BOX_DEPTHS: dict = {}
 _KEPT_LOCK = threading.Lock()
@@ -382,7 +407,7 @@ class CanonDepthSet:
     def __getitem__(self, index, rng=None):
         scene = self.scenes[index]
         key = (type(self).__name__, None if self.resize is None else tuple(self.resize),
-               *sorted(_stamp(e.path) for e in os.scandir(scene) if e.is_file()))
+               _engine(), *sorted(_stamp(e.path) for e in os.scandir(scene) if e.is_file()))
         return [a.copy() for a in _kept(_DEPTH_ITEMS, 64, key, lambda: self._item(scene))]
 
     def _item(self, scene):

@@ -2,11 +2,13 @@
 decoder against the port's numpy codec (io/exr.py) and the JAX package's
 build of the same source (sdirt_tpu/native), the dataset engine switch
 (dfdp/datasets.py: SDIRT_IMAGE_ENGINE / set_image_engine), and the build's
-failure, which raises instead of falling back. The port's engine has no
-PNG/JPEG decoder (the card's machine lacks the libjpeg and libpng headers),
-so tests/test_native_loader.py's decode, resize and thread tests have no
-counterpart here. No PIZ file is in the repository, so the PIZ path is not
-covered (tests/test_torch_exr.py checks the numpy codec's PIZ stages).
+failure, which raises instead of falling back. The engine's PNG/JPEG decode
+and resize (src/sdirt_loader.cc, C++ against zlib alone), the counterpart of
+tests/test_native_loader.py's decode, resize and thread tests, is held in
+tests/test_torch_native_decode.py; both files build with g++ on the CPU, and
+chip_smoke.py phase 27 checks the engine on the card's machine. No PIZ file
+is in the repository, so the PIZ path is not covered
+(tests/test_torch_exr.py checks the numpy codec's PIZ stages).
 """
 
 import os

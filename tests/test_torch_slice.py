@@ -332,6 +332,26 @@ def test_import_guard_covers_the_modules_slice():
     assert set(MODULES_SLICE) <= files
 
 
+def test_native_sources_need_zlib_alone():
+    """The native engine's C++ includes neither libpng's nor libjpeg's
+    header (the card's machine has neither) and links zlib and pthread only."""
+    from sdirt_tpu_torch import native
+
+    srcs = glob.glob(os.path.join(ROOT, "sdirt_tpu_torch", "native", "src", "*.cc"))
+    assert sorted(map(os.path.basename, srcs)) == ["sdirt_exr.cc", "sdirt_loader.cc"]
+    assert sorted(native.SOURCES.values()) == sorted(srcs)
+    for src in srcs:
+        with open(src) as f:
+            includes = [line.split()[1] for line in f if line.startswith("#include")]
+        assert "<zlib.h>" in includes, src
+        for header in includes:
+            assert not any(lib in header for lib in ("png", "jpeg")), (
+                src, header)
+    argv = [*native.CXX_FLAGS, *native.LIBS]
+    assert [a for a in argv if a.startswith(("-l", "-L", "-Wl"))] == ["-lz"]
+    assert "-pthread" in argv
+
+
 STUDENT_TOOLS = {"distill_basis_student": ["--out", "x"], "probe_teacher_l1": [],
                  "gate_rf35_student": ["--student-ckpt", "x"],
                  "fit_psfnet": ["--mesh", "1", "1"]}
