@@ -172,7 +172,17 @@ Phases, each printing its elapsed seconds:
      load_batch of 16 PNGs on all cores and on one; the EXR decoder
      bit-equal to io/exr.py on FlyingThings3D trees as phase 22 writes
      them, the dataset items equal under both engines, host ms per read;
- 28. the kernels line, then the card's name and power limit, then the
+ 28. single-image render: render_single_image at its published defaults
+     (psf_grid 21, psf_ks 44 traced at 45, GEO_SPP rays per point and
+     wavelength, the per-surface trace) on rf50mm as fit_psfnet loads it,
+     refocused to 1 m, a 512x768 flat capture at -3000 mm, on the JAX run's
+     own refocus and pupil draws: the output within 2e-3 (max) and 1e-4
+     (mean) of the JAX package's op-by-op CPU run at 2048 seeded pixels and
+     in each channel's sum (single_image_jax_cpu.npz); the PSF sums' gap;
+     K1 and K2 not launched; the map's trace ms and its rays/s, the conv's
+     ms (CUDA events), the render's device idle share from a profile_trace
+     scope (its Chrome trace file read back) and a print_memory line;
+ 29. the kernels line, then the card's name and power limit, then the
      result line.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
@@ -2315,6 +2325,134 @@ def native_phase(smi):
     return out
 
 
+SINGLE_IMAGE_REF = "sdirt_tpu_torch/reference/single_image_jax_cpu.npz"
+SINGLE_IMAGE_TOL = {"max": 2e-3, "mean": 1e-4}
+
+
+def trace_busy_ms(events):
+    """Device busy ms and device activities in a Chrome trace's events: the
+    union of its kernel, memcpy and memset intervals (read from the file,
+    which is cheaper than key_averages() over ~10^5 events)."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, len(spans)
+
+
+def single_image_phase(fused_trace, fused_conv, smi):
+    """Phase 28: render_single_image at its published defaults against the
+    JAX package's op-by-op CPU run on the same draws; its trace and conv
+    times, rays/s, idle share and memory."""
+    from sdirt_tpu_torch.core.constants import GEO_SPP, WAVE_RGB
+    from sdirt_tpu_torch.dfdp.datasets import load_rgb
+    from sdirt_tpu_torch.dp.psf import compute_psf_rgb
+    from sdirt_tpu_torch.optics.sampling import point_source_grid
+    from sdirt_tpu_torch.psfnet.surrogate import PSFNetLens
+    from sdirt_tpu_torch.render.perpixel import psf_map_conv, render_single_image
+    from sdirt_tpu_torch.utils.logging import RaysPerSecond, print_memory, profile_trace
+
+    ref = np.load(SINGLE_IMAGE_REF)
+    img = load_rgb(str(ref["image"]))
+    if img.astype(np.int64).sum() != int(ref["image_sum"]):
+        raise RuntimeError(f"{ref['image']} is not the image the JAX run rendered")
+    lens = PSFNetLens("lenses/rf50mm/lens_web.json", model_name="mlp", kernel_size=KS,
+                      sensor_res=(512, 768), device="cuda")
+    lens.refocus(-1000.0 + lens.d_sensor, xy=ref["refocus_xy"])
+    depth, grid, ks = float(ref["depth"]), int(ref["psf_grid"]), int(ref["psf_ks"])
+    pupils = [(ref["pupil_main"][i], ref["pupil_chief"][i]) for i in range(len(WAVE_RGB))]
+    kw = dict(psf_grid=grid, psf_ks=ks, pupils=pupils)
+    out = {"d_sensor_gap_mm": abs(lens.d_sensor - float(ref["d_sensor"]))}
+
+    fused_trace.launches = fused_conv.launches = 0
+    got = render_single_image(lens, img, depth, **kw)
+    torch.cuda.synchronize()
+    if (fused_trace.launches, fused_conv.launches) != (0, 0):
+        raise RuntimeError("the single-image render launched K1 or K2")
+    if got.device.type != "cuda" or tuple(got.shape) != (512, 768, 3):
+        raise RuntimeError(f"the render is {tuple(got.shape)} on {got.device}")
+    host = got.cpu().numpy()
+    if not np.isfinite(host).all():
+        raise RuntimeError("the single-image render is not finite")
+    picked = host.reshape(-1, 3)[ref["pick"]]
+    gap = np.abs(picked - ref["values"])
+    out["max_abs_err"], out["mean_abs_err"] = float(gap.max()), float(gap.mean())
+    out["channel_sum_err"] = np_max_diff(host.astype(np.float64).sum((0, 1)),
+                                         ref["channel_sum"]) / (512 * 768)
+    out["jax_jit_vs_op_by_op_max"] = np_max_diff(ref["values_jit"], ref["values"])
+    out["vs_jax_jit_max"] = np_max_diff(picked, ref["values_jit"])
+
+    pts = point_source_grid(depth=depth, grid=grid).reshape(-1, 3)
+    n_rays = len(pts) * len(WAVE_RGB) * 2 * GEO_SPP       # main + chief bundles
+    psfs = compute_psf_rgb(lens, pts, None, ks=ks + 1, pupils=pupils)
+    psf_sum = psfs.double().sum((-1, -2)).cpu().numpy()
+    out["psf_sum_err"] = np_max_diff(psf_sum, ref["psf_sum"])
+    out["psf_sum_rel_err"] = float((np.abs(psf_sum - ref["psf_sum"]) / ref["psf_sum"]).max())
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ctr = RaysPerSecond()
+    with ctr.measure(n_rays):
+        start.record()
+        compute_psf_rgb(lens, pts, None, ks=ks + 1, pupils=pupils)
+        end.record()
+        torch.cuda.synchronize()
+    out["rays_per_s"] = ctr.rays_per_sec
+    out["trace_ms"] = start.elapsed_time(end)
+    psfs = psfs / (psfs.sum((-1, -2), keepdim=True) + 1e-9)
+    psf_map = psfs.reshape(grid, grid, 3, ks + 1, ks + 1).permute(2, 0, 3, 1, 4).reshape(
+        3, grid * (ks + 1), grid * (ks + 1))
+    img_t = torch.from_numpy(img).cuda().float()[None] / 255.0
+    out["conv_ms"] = cuda_time_ms(lambda: psf_map_conv(img_t, psf_map, grid), 5)
+
+    out["render_ms"] = cuda_time_ms(lambda: render_single_image(lens, img, depth, **kw),
+                                    1, warmup=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with profile_trace(tmp) as prof:
+            start.record()
+            render_single_image(lens, img, depth, **kw)
+            end.record()
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+    out["profiled_render_ms"] = start.elapsed_time(end)
+    busy, out["kernels"] = trace_busy_ms(events)
+    out["device_busy_ms"] = busy
+    out["idle_share"] = 1 - busy / out["profiled_render_ms"] if out["kernels"] else None
+    # the profiler's host cost lengthens the profiled call: the same busy
+    # time against the unprofiled call's length bounds the share from below
+    out["idle_share_unprofiled"] = 1 - busy / out["render_ms"] if out["kernels"] else None
+    out["trace_events"] = len(events)
+    if not events:
+        raise RuntimeError("profile_trace wrote an empty trace")
+    idle, idle_unprofiled = (
+        ("not measured (the trace holds no device activity)",) * 2 if not out["kernels"]
+        else (f"{out['idle_share']:.1%}", f"{out['idle_share_unprofiled']:.1%}"))
+    print(f"single-image render (rf50mm at 1 m, 512x768 at {depth:g} mm, psf_grid {grid}, "
+          f"psf_ks {ks} -> {ks + 1}): vs the JAX CPU run op by op max |diff| "
+          f"{out['max_abs_err']:.3e}, mean {out['mean_abs_err']:.3e}, channel sums "
+          f"{out['channel_sum_err']:.3e} per pixel (limits {SINGLE_IMAGE_TOL['max']:g} / "
+          f"{SINGLE_IMAGE_TOL['mean']:g}); vs its jitted run {out['vs_jax_jit_max']:.3e} "
+          f"(JAX jitted vs op by op {out['jax_jit_vs_op_by_op_max']:.3e}); PSF sums "
+          f"{out['psf_sum_err']:.3e} ({out['psf_sum_rel_err']:.3e} relative); d_sensor "
+          f"{out['d_sensor_gap_mm']:.3e} mm; K1 and K2 not launched")
+    print(f"single-image render times ({smi}): PSF map trace {out['trace_ms']:.2f} ms "
+          f"({n_rays} rays, {out['rays_per_s']:.4g} rays/s), psf_map_conv "
+          f"{out['conv_ms']:.3f} ms, the whole render {out['render_ms']:.2f} ms; under "
+          f"profile_trace {out['profiled_render_ms']:.2f} ms with the device busy "
+          f"{busy:.2f} ms in {out['kernels']} kernels and copies (idle share {idle}, from "
+          f"the {len(events)} events of its Chrome trace; against the unprofiled call "
+          f"{idle_unprofiled})")
+    print_memory("single-image render:")
+    if not (out["max_abs_err"] <= SINGLE_IMAGE_TOL["max"]
+            and out["mean_abs_err"] <= SINGLE_IMAGE_TOL["mean"]
+            and out["channel_sum_err"] <= SINGLE_IMAGE_TOL["mean"]):
+        raise RuntimeError("the single-image render disagrees with the JAX CPU run")
+    return out
+
+
 def main():
     os.chdir(ROOT)
     # a hang inside a phase is cut here, not only checked between phases
@@ -2742,7 +2880,12 @@ def main():
     native_stats = native_phase(smi)
     phase("27 native engine", t)
 
-    # -- 28. result ----------------------------------------------------------
+    # -- 28. single-image render --------------------------------------------
+    t = time.perf_counter()
+    single = single_image_phase(fused_trace, fused_conv, smi)
+    phase("28 single-image render", t)
+
+    # -- 29. result ----------------------------------------------------------
     if kernels.builds != 1:
         raise RuntimeError(f"the kernels were built {kernels.builds} times in one process")
     err = max([main_diff, train_stats["k2"]["max_abs_err"],
@@ -2795,7 +2938,8 @@ def main():
         "analysis": analysis, "fit_heads": heads, "baselines": base,
         "coherent": coherent, "lens_design": design, "published_train": real,
         "depth_tools": tools, "distill": distilled, "student_gate": gate35,
-        "multi_gpu": multi, "native": native_stats}, default=float))
+        "multi_gpu": multi, "native": native_stats, "single_image": single},
+        default=float))
     print(smi)
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@ sensor distances shape the rendered images.
 DEFAULT_WAVE = 0.589
 WAVE_RGB = (0.656, 0.589, 0.486)
 
+# Depth conventions [mm]; objects live at negative z
+DEPTH = -20000.0
+
 # Ray sampling
 GEO_SPP = 2048          # samples/point for geometric optics calculations
 

@@ -1,10 +1,14 @@
-"""The OpenCV calls of the synthetic scene generator, of the
-Learn2Reduce baseline kernels and of the monitor's depth images, in numpy.
+"""The OpenCV calls of the synthetic scene generator, of the loaders'
+``cv2`` resize engine, of the Learn2Reduce baseline kernels and of the
+monitor's depth images, in numpy.
 
 The JAX package's ``SyntheticRGBD`` draws its textures with ``cv2.blur``,
 ``cv2.resize`` (INTER_LINEAR and INTER_CUBIC, float32, upscaling) and
-``cv2.line`` (8-connected, thickness 1 or 2). The port may not import cv2,
-so this module reproduces OpenCV's own arithmetic for exactly those uses:
+``cv2.line`` (8-connected, thickness 1 or 2); its loaders, under
+``SDIRT_RESIZE_ENGINE=cv2``, resize colour frames with INTER_CUBIC
+(float32, 3 channels, either way) and depth with INTER_NEAREST. The port
+may not import cv2, so this module reproduces OpenCV's own arithmetic for
+exactly those uses:
 
   * ``blur``: normalised box filter, sums in float64, BORDER_REFLECT_101;
   * ``resize``: OpenCV's separable resampler: horizontal pass first, float32
@@ -12,6 +16,8 @@ so this module reproduces OpenCV's own arithmetic for exactly those uses:
     horizontal weight clamped at the borders, rows replicated; the cubic
     kernel has A = -0.75 and its vertical pass sums the four rows in the
     order of OpenCV's 4-lane vector loop, the tail columns in scalar order;
+    ``resize_nearest``: INTER_NEAREST's floor(i * n_in / n_out) gather
+    (the JAX loaders' ``cv2`` resize engine);
   * ``line``: the 8-connected Bresenham line, and for thickness 2 the
     fixed-point polygon fill of the line's rectangle plus radius-1 round
     caps;
@@ -106,27 +112,44 @@ def _taps(n_in: int, n_out: int, cubic: bool, clamp: bool):
 
 
 def resize(img: np.ndarray, dsize, interpolation: str = "linear") -> np.ndarray:
-    """cv2.resize(img, (w, h), INTER_LINEAR or INTER_CUBIC) of a 2-D float32
-    array."""
+    """cv2.resize(img, (w, h), INTER_LINEAR or INTER_CUBIC) of a float32
+    [H, W] or interleaved [H, W, C] array. Each channel is resampled on its
+    own; the vertical pass's vector loop runs over the interleaved row of
+    w * C values, as OpenCV's does."""
     if interpolation not in ("linear", "cubic"):
         raise ValueError(f"interpolation {interpolation!r}")
     cubic = interpolation == "cubic"
     w, h = dsize
-    sh, sw = img.shape
+    sh, sw = img.shape[:2]
     x0, ax = _taps(sw, w, cubic, clamp=True)
     y0, by = _taps(sh, h, cubic, clamp=False)
+    tail = (1,) * (img.ndim - 2)
     k = len(ax)
-    hs = [img[:, np.clip(x0 + j, 0, sw - 1)] * ax[j] for j in range(k)]
+    hs = [img[:, np.clip(x0 + j, 0, sw - 1)] * ax[j].reshape(-1, *tail) for j in range(k)]
     row = hs[0]
     for t in hs[1:]:
         row = row + t
-    vs = [row[np.clip(y0 + j, 0, sh - 1)] * by[j][:, None] for j in range(k)]
+    vs = [row[np.clip(y0 + j, 0, sh - 1)] * by[j].reshape(-1, 1, *tail) for j in range(k)]
     if not cubic:
         return (vs[0] + vs[1]).astype(_F)
-    out = ((vs[0] + vs[1]) + vs[2]) + vs[3]
-    nv = (w // 4) * 4
-    out[:, :nv] = (vs[0] + (vs[1] + (vs[2] + vs[3])))[:, :nv]
-    return out.astype(_F)
+    out = (((vs[0] + vs[1]) + vs[2]) + vs[3]).reshape(h, -1)
+    nv = (out.shape[1] // 4) * 4
+    out[:, :nv] = (vs[0] + (vs[1] + (vs[2] + vs[3]))).reshape(h, -1)[:, :nv]
+    return out.reshape(vs[0].shape).astype(_F)
+
+
+def resize_nearest(img: np.ndarray, dsize) -> np.ndarray:
+    """cv2.resize(img, (w, h), INTER_NEAREST) of an [H, W] or [H, W, C]
+    array: source index floor(i * (1 / (n_out / n_in))) in double, as
+    OpenCV's resizeNN computes it, clamped to the last sample."""
+    w, h = dsize
+    sh, sw = img.shape[:2]
+
+    def index(n_in, n_out):
+        ifx = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * ifx).astype(np.int64), n_in - 1)
+
+    return img[index(sh, h)][:, index(sw, w)]
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,12 @@ where the JAX package's ``native`` engine applies:
 The depth PNGs and the NYU, FlyingThings3D and Middlebury colour frames stay
 on the numpy decoders under either engine, as they stay on cv2 in the JAX
 package. Asking for ``native`` where the library cannot be built raises.
+
+The resize engine (``SDIRT_RESIZE_ENGINE`` / ``set_resize_engine``) is
+``pil`` (the default: PIL's antialiased bicubic for colour, PIL's NEAREST
+for depth, as above) or ``cv2`` (``cvops.resize``'s INTER_CUBIC, not
+antialiased on a downscale, and ``cvops.resize_nearest``'s INTER_NEAREST),
+the JAX package's two resize engines. An unknown engine raises.
 """
 
 from __future__ import annotations
@@ -68,6 +74,8 @@ from . import cvops
 
 ENGINES = ("numpy", "native")
 _IMAGE_ENGINE = os.environ.get("SDIRT_IMAGE_ENGINE", "numpy")
+RESIZE_ENGINES = ("pil", "cv2")
+_RESIZE_ENGINE = os.environ.get("SDIRT_RESIZE_ENGINE", "pil")
 
 
 def set_image_engine(engine: str):
@@ -82,6 +90,20 @@ def _engine() -> str:
     if _IMAGE_ENGINE not in ENGINES:
         raise ValueError(f"SDIRT_IMAGE_ENGINE={_IMAGE_ENGINE!r}: one of {ENGINES}")
     return _IMAGE_ENGINE
+
+
+def set_resize_engine(engine: str):
+    """Select the resize engine: ``pil`` or ``cv2``."""
+    global _RESIZE_ENGINE
+    if engine not in RESIZE_ENGINES:
+        raise ValueError(f"resize engine {engine!r}: one of {RESIZE_ENGINES}")
+    _RESIZE_ENGINE = engine
+
+
+def _resize_engine() -> str:
+    if _RESIZE_ENGINE not in RESIZE_ENGINES:
+        raise ValueError(f"SDIRT_RESIZE_ENGINE={_RESIZE_ENGINE!r}: one of {RESIZE_ENGINES}")
+    return _RESIZE_ENGINE
 
 
 def _load_exr(path):
@@ -328,17 +350,25 @@ def _load_rgb_chw(path, resize):
         return img.clip(0, 255) / np.float32(255.0)
     img = (load_rgb(path).astype(np.float64) / 255.0).astype(np.float32)
     if resize is not None:
-        img = resize_bicubic(img, resize)
+        return _resize_rgb(img, resize)
     return np.ascontiguousarray(img.transpose(2, 0, 1))
 
 
 def _resize_depth(d, resize):
-    return resize_nearest(np.asarray(d, np.float32), resize)
+    """Nearest resize under the selected resize engine."""
+    d = np.asarray(d, np.float32)
+    if _resize_engine() == "cv2":
+        return cvops.resize_nearest(d, resize[::-1])
+    return resize_nearest(d, resize)
 
 
 def _resize_rgb(img, resize):
-    """float32 [H, W, 3] -> bicubic-resized [3, H', W'] float32."""
-    return _chw(resize_bicubic(np.asarray(img, np.float32), resize))
+    """float32 [H, W, 3] -> bicubic-resized [3, H', W'] float32 under the
+    selected resize engine."""
+    img = np.asarray(img, np.float32)
+    if _resize_engine() == "cv2":
+        return _chw(cvops.resize(img, resize[::-1], "cubic"))
+    return _chw(resize_bicubic(img, resize))
 
 
 def item_rng(seed: int, index: int) -> np.random.RandomState:
@@ -355,10 +385,10 @@ def _require_scenes(scenes, dataset_dir, cls):
 
 # The Canon depth sets are decoded once per process: a box scene's d.png is
 # a 24-MP RGBA PNG that read_png takes seconds to decode, and training
-# evaluates the box set every epoch. Items are kept per resolution and image
-# engine (the engines resize the l/r views differently), the full-size box
-# depth across both; the keys hold the files' sizes and mtimes, so a
-# rewritten file is read again.
+# evaluates the box set every epoch. Items are kept per resolution, image
+# engine and resize engine (each resizes the l/r views differently), the
+# full-size box depth across them; the keys hold the files' sizes and
+# mtimes, so a rewritten file is read again.
 _DEPTH_ITEMS: dict = {}
 _BOX_DEPTHS: dict = {}
 _KEPT_LOCK = threading.Lock()
@@ -407,7 +437,8 @@ class CanonDepthSet:
     def __getitem__(self, index, rng=None):
         scene = self.scenes[index]
         key = (type(self).__name__, None if self.resize is None else tuple(self.resize),
-               _engine(), *sorted(_stamp(e.path) for e in os.scandir(scene) if e.is_file()))
+               _engine(), _resize_engine(),
+               *sorted(_stamp(e.path) for e in os.scandir(scene) if e.is_file()))
         return [a.copy() for a in _kept(_DEPTH_ITEMS, 64, key, lambda: self._item(scene))]
 
     def _item(self, scene):

@@ -1,14 +1,54 @@
 """Depth and image-quality metrics, host-side numpy (copied from
-sdirt_tpu/dfdp/metrics.py; formulas kept literal). PSNR and SSIM use
-skimage's conventions on uint8-rounded images."""
+sdirt_tpu/dfdp/metrics.py; formulas kept literal, float64 where it is).
+PSNR and SSIM use skimage's conventions on uint8-rounded images; the
+bumpiness convolves with scipy's ``convolve(mode="reflect")``."""
 
 from __future__ import annotations
 
 import numpy as np
 
 # ================================
-# Depth metrics over a validity mask
+# Depth metrics
 # ================================
+
+def abs_rel(est_depth, gt_depth):
+    out = np.abs(gt_depth - est_depth) / gt_depth
+    total = np.count_nonzero(~np.isinf(out))
+    out[np.isinf(out)] = 0
+    return np.sum(out) / total
+
+
+def sq_rel(est_depth, gt_depth):
+    out = np.power(gt_depth - est_depth, 2) / gt_depth
+    total = np.count_nonzero(~np.isinf(out))
+    out[np.isinf(out)] = 0
+    return np.sum(out) / total
+
+
+def mae(est_depth, gt_depth):
+    return np.mean(np.abs(gt_depth - est_depth))
+
+
+def mse(est_depth, gt_depth):
+    return np.mean(np.power(gt_depth - est_depth, 2))
+
+
+def rmse(est_depth, gt_depth):
+    return np.sqrt(mse(est_depth, gt_depth))
+
+
+def rmse_log(est_depth, gt_depth):
+    gt, est = np.log(gt_depth), np.log(est_depth)
+    total = np.count_nonzero((~np.isinf(est)) * (~np.isinf(gt)))
+    out = np.power(gt - est, 2)
+    out[np.isinf(out)] = 0
+    return np.sqrt(np.sum(out) / total)
+
+
+def accuracy_k(est_depth, gt_depth, k):
+    thresh = np.maximum(est_depth / gt_depth, gt_depth / est_depth)
+    total = np.count_nonzero(~np.isinf(thresh))
+    return np.sum(np.where(thresh < 1.25**k, 1, 0)) / total
 
 
 def mask_abs_rel(est_depth, gt_depth, mask):
@@ -41,6 +81,60 @@ def mask_accuracy_k(est_depth, gt_depth, k, mask):
     b = gt_depth[mask] / (est_depth[mask] + 1e-6)
     thresh = np.maximum(a, b)
     return np.sum(np.where(thresh < 1.25**k, 1, 0)) / np.sum(mask)
+
+
+def mask_accuracy_v(est_depth, gt_depth, v, mask):
+    a = est_depth[mask] / (gt_depth[mask] + 1e-6)
+    b = gt_depth[mask] / (est_depth[mask] + 1e-6)
+    thresh = np.maximum(a, b)
+    return np.sum(np.where(thresh < v, 1, 0)) / np.sum(mask)
+
+
+def mask_mse_w_conf(est_depth, gt_depth, conf, mask):
+    return np.sum(conf[mask] * np.power(gt_depth[mask] - est_depth[mask], 2)) / np.sum(conf[mask])
+
+
+def mask_mae_w_conf(est_depth, gt_depth, conf, mask):
+    return np.sum(conf[mask] * np.abs(gt_depth[mask] - est_depth[mask])) / np.sum(conf[mask])
+
+
+# ================================
+# Bumpiness: the Frobenius norm of the error's Scharr Hessian
+# ================================
+
+_SCHARR_V = np.array([[3, 0, -3], [10, 0, -10], [3, 0, -3]], np.float64) / 32
+_SCHARR_H = _SCHARR_V.T
+
+
+def _conv2_same(img, k):
+    from scipy.ndimage import convolve
+
+    return convolve(img.astype(np.float64), k, mode="reflect")
+
+
+def scharr_v(img):
+    return _conv2_same(img, _SCHARR_V)
+
+
+def scharr_h(img):
+    return _conv2_same(img, _SCHARR_H)
+
+
+def get_bumpiness(gt, algo_result, mask, clip=0.05, factor=100):
+    diff = np.asarray(algo_result - gt, dtype="float64")
+    dx, dy = scharr_v(diff), scharr_h(diff)
+    bump = np.sqrt(np.square(scharr_v(dx)) + np.square(scharr_h(dx))
+                   + np.square(scharr_h(dy)) + np.square(scharr_v(dy)))
+    bump = np.clip(bump, 0, clip)
+    return np.mean(bump[mask]) * factor
+
+
+def get_bumpiness_non_mask(gt, algo_result, clip=0.05, factor=100):
+    diff = np.asarray(algo_result - gt, dtype="float64")
+    dx, dy = scharr_v(diff), scharr_h(diff)
+    bump = np.sqrt(np.square(scharr_v(dx)) + np.square(scharr_h(dx))
+                   + np.square(scharr_h(dy)) + np.square(scharr_v(dy)))
+    return np.mean(np.clip(bump, 0, clip)) * factor
 
 
 # ================================

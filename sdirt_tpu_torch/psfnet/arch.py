@@ -236,3 +236,25 @@ def build_psfnet(model_name: str, ks: int) -> nn.Module:
     if model_name == "siren":
         return Siren(out_features=ks * ks)
     raise ValueError(f"Unsupported PSF network architecture: {model_name}")
+
+
+def load_torch_psfnet(net: nn.Module, path: str) -> nn.Module:
+    """Load a reference PyTorch MLP checkpoint (a ``.pkl`` state dict of
+    Linear layers ``<prefix>.<i>.weight`` / ``.bias``) into ``net``: its
+    layers, in the order of i, go into the net's ``Dense_<j>`` layers in
+    order, each leaf only where its shape matches (the reference's
+    shape-filtered partial load). Returns ``net``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    order = lambda kv: int(kv[0].split(".")[-2])
+    weights = sorted(((k, v) for k, v in sd.items() if k.endswith("weight")), key=order)
+    biases = sorted(((k, v) for k, v in sd.items() if k.endswith("bias")), key=order)
+    own = net.state_dict()
+    dense = sorted({k.rsplit(".", 1)[0] for k in own if k.startswith("Dense_")},
+                   key=lambda m: int(m.split("_")[1]))
+    new = dict(own)
+    for (_, w), (_, b), m in zip(weights, biases, dense):
+        for leaf, v in (("weight", w), ("bias", b)):
+            if own[f"{m}.{leaf}"].shape == v.shape:
+                new[f"{m}.{leaf}"] = v.float()
+    net.load_state_dict(new)
+    return net

@@ -25,7 +25,7 @@ from ..dp.psf import compute_psf
 from ..optics.lens import Lens
 from ..utils.png import write_png
 from ..utils.weights import flax_to_torch, load_npz, torch_to_flax
-from .arch import build_psfnet
+from .arch import build_psfnet, load_torch_psfnet
 
 DEFAULT_FOC_OFFSETS = np.array([-999.9, -1000.0, -1000.1], np.float32)
 
@@ -140,23 +140,8 @@ class PSFNetLens(Lens):
         return self
 
     def _load_pkl(self, path: str):
-        """A reference MLP checkpoint (a PyTorch state dict of Linear layers
-        ``<prefix>.<i>.weight`` / ``.bias``): its layers, in the order of
-        i, go into this net's Dense layers in order, each leaf only where
-        its shape matches."""
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        order = lambda kv: int(kv[0].split(".")[-2])
-        weights = sorted(((k, v) for k, v in sd.items() if k.endswith("weight")), key=order)
-        biases = sorted(((k, v) for k, v in sd.items() if k.endswith("bias")), key=order)
-        own = self.net.state_dict()
-        dense = sorted({k.rsplit(".", 1)[0] for k in own if k.startswith("Dense_")},
-                       key=lambda m: int(m.split("_")[1]))
-        new = dict(own)
-        for (_, w), (_, b), m in zip(weights, biases, dense):
-            for leaf, v in (("weight", w), ("bias", b)):
-                if own[f"{m}.{leaf}"].shape == v.shape:
-                    new[f"{m}.{leaf}"] = v.float()
-        self.net.load_state_dict(new)
+        """A reference MLP checkpoint (``arch.load_torch_psfnet``)."""
+        load_torch_psfnet(self.net, path)
         return self
 
     def save_net(self, path: str):

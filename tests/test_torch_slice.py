@@ -381,3 +381,39 @@ def test_student_tools_and_mesh_default_to_the_card(monkeypatch, tool):
     monkeypatch.chdir(ROOT)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(STUDENT_TOOLS[tool])
+
+
+# the modules of the closing slice: the single-image render, the resize
+# engine, the metrics and logging helpers, the package exports, the
+# supervised relaunch and the log watcher
+CLOSING_SLICE = ("__init__.py", "core/__init__.py", "dfdp/__init__.py", "dp/__init__.py",
+                 "optics/__init__.py", "parallel/__init__.py", "psfnet/__init__.py",
+                 "render/__init__.py", "render/perpixel.py", "dfdp/datasets.py",
+                 "dfdp/cvops.py", "dfdp/metrics.py", "utils/logging.py",
+                 "psfnet/arch.py", "run_train_supervised.py", "watch_dfdp_training.py")
+
+
+def test_import_guard_covers_the_closing_slice():
+    files = {os.path.relpath(p, os.path.join(ROOT, "sdirt_tpu_torch"))
+             for p in _package_files()}
+    assert set(CLOSING_SLICE) <= files
+
+
+def test_single_image_render_runs_on_the_lens_device(monkeypatch):
+    """render_single_image takes no device of its own: it runs on the
+    lens's, and a lens built with the defaults is on the card (and raises
+    without one)."""
+    from sdirt_tpu_torch.render.perpixel import render_single_image
+
+    assert "device" not in inspect.signature(render_single_image).parameters
+    lens = Lens(os.path.join(ROOT, "lenses", "rf50mm", "lens_web.json"),
+                sensor_res=(512, 768), device="cpu")
+    out = render_single_image(lens, np.zeros((8, 12, 3), np.uint8), -2000.0,
+                              psf_grid=1, psf_ks=5)
+    assert out.device == lens.device
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    monkeypatch.chdir(ROOT)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render_single_image(Lens("lenses/rf50mm/lens_web.json", sensor_res=(512, 768)),
+                            np.zeros((8, 12, 3), np.uint8), -2000.0)
