@@ -62,6 +62,7 @@ import os
 import random
 import struct
 import threading
+import time
 import zlib
 from glob import glob
 from os.path import basename, dirname
@@ -70,6 +71,7 @@ import numpy as np
 
 from ..io.exr import read_exr
 from ..io.jpeg import read_jpeg
+from ..utils import trace
 from . import cvops
 
 ENGINES = ("numpy", "native")
@@ -797,6 +799,7 @@ class DataLoader:
                     cond.wait_for(lambda: stop.is_set() or i < consumed[0] + ahead)
                 if stop.is_set():
                     return
+                wall, cpu = time.perf_counter_ns(), time.thread_time_ns()
                 try:
                     samples = [self.dataset.__getitem__(j, item_rng(self.seed, j))
                                for j in batches[i]]
@@ -804,6 +807,12 @@ class DataLoader:
                             for k in range(len(samples[0]))]
                 except BaseException as exc:  # noqa: BLE001 - re-raised below
                     item = _WorkerError(exc)
+                else:
+                    trace.count("loader.batches")
+                    trace.count("loader.work_wall_s",
+                                (time.perf_counter_ns() - wall) / 1e9)
+                    trace.count("loader.work_cpu_s",
+                                (time.thread_time_ns() - cpu) / 1e9)
                 with cond:
                     ready[i] = item
                     cond.notify_all()
@@ -818,7 +827,8 @@ class DataLoader:
         try:
             for i in ids:
                 with cond:
-                    cond.wait_for(lambda: i in ready)
+                    with trace.span("loader.wait"):
+                        cond.wait_for(lambda: i in ready)
                     item = ready.pop(i)
                     consumed[0] = i + 1
                     cond.notify_all()

@@ -18,6 +18,7 @@ import torch
 
 from ..parallel.mesh import all_reduce_autograd, average_gradients
 from ..psfnet.train import ADAMW, cosine_annealing
+from ..utils import trace
 from .basenet import compute_loss, linear_depth
 
 MAX_GRAD_NORM = 1.0
@@ -86,12 +87,17 @@ def dfdp_train_step(state: DfDPTrainState, stack_rgb, gt_depth,
     loss dict of 0-d tensors (not synchronised). data_group: the data
     ranks of a data-parallel step (parallel/steps.py), whose gradients are
     averaged before the clip."""
-    losses = dfdp_grads(state.net, stack_rgb, gt_depth, gt_aif, data_group)
-    average_gradients(state.net.parameters(), data_group)
-    clip_by_global_norm_([p.grad for p in state.net.parameters()])
-    state.opt.step()
-    state.sched.step()
-    state.step += 1
+    dev = stack_rgb.device
+    with trace.span("train_step", dev):
+        with trace.span("train_step.grads", dev):
+            losses = dfdp_grads(state.net, stack_rgb, gt_depth, gt_aif,
+                                data_group)
+        average_gradients(state.net.parameters(), data_group)
+        with trace.span("train_step.update", dev):
+            clip_by_global_norm_([p.grad for p in state.net.parameters()])
+            state.opt.step()
+            state.sched.step()
+        state.step += 1
     return losses
 
 

@@ -78,6 +78,7 @@ from .dfdp.monitor import DEPTH_METRICS, ResultsMonitor, select_focus_dist
 from .dfdp.train import create_dfdp_state, dfdp_infer, dfdp_train_step
 from .parallel.mesh import broadcast_module, launch, make_mesh
 from .render.pipeline import resolve_variant
+from .utils import trace
 from .utils.checkpoint import (TrainCheckpointer, read_ckpt_watermark,
                                save_inference_ckpt, write_ckpt_watermark)
 from .utils.config import load_config
@@ -179,13 +180,15 @@ def _render_batch(lens, aif, gt_depth, generator=None, train: bool = False):
     lens of V views, depth [B, 1, H, W] f32 metres, aif [B, 3, H, W] f32),
     on the device."""
     dev = lens.device
-    aif_u8 = torch.from_numpy((np.asarray(aif) * 255.0 + 0.5).astype(np.uint8))
-    depth_f16 = torch.from_numpy(np.asarray(gt_depth).astype(np.float16))
-    if dev.type == "cuda":
-        aif_u8, depth_f16 = aif_u8.pin_memory(), depth_f16.pin_memory()
-    aif_dev = aif_u8.to(dev, non_blocking=True).float() / 255.0
-    depth_dev = depth_f16.to(dev, non_blocking=True).float()
-    focus = select_focus_dist(gt_depth, 1)
+    with trace.span("render.prep", dev):
+        aif_u8 = torch.from_numpy((np.asarray(aif) * 255.0 + 0.5)
+                                  .astype(np.uint8))
+        depth_f16 = torch.from_numpy(np.asarray(gt_depth).astype(np.float16))
+        if dev.type == "cuda":
+            aif_u8, depth_f16 = aif_u8.pin_memory(), depth_f16.pin_memory()
+        aif_dev = aif_u8.to(dev, non_blocking=True).float() / 255.0
+        depth_dev = depth_f16.to(dev, non_blocking=True).float()
+        focus = select_focus_dist(gt_depth, 1)
     stack = lens.render(aif_dev, -depth_dev * 1e3, -focus[:, 0] * 1e3,
                         train=train, generator=generator)
     return stack, depth_dev, aif_dev
@@ -225,22 +228,6 @@ def _total_steps(args, n_train: int) -> int:
     if args.get("anneal_over_steps"):
         return args["epochs"] * (n_train // args["bs"])
     return args["epochs"] * n_train
-
-
-def _mark(cuda: bool):
-    """A point in time: a recorded CUDA event on the card, the host clock
-    on the CPU (where every operation has finished when it returns)."""
-    if not cuda:
-        return time.perf_counter()
-    event = torch.cuda.Event(enable_timing=True)
-    event.record()
-    return event
-
-
-def _ms(start, end) -> float:
-    if isinstance(start, float):
-        return 1e3 * (end - start)
-    return start.elapsed_time(end)
 
 
 def data_parallel_ranks(bs: int, n_cards: int) -> int:
@@ -345,7 +332,6 @@ def train(args, device="cuda", mesh=None) -> dict:
     out = {"state": state, "start_epoch": resume_epoch, "epochs_trained": 0,
            "val": [], "losses": [], "loss_terms": [], "steps": [],
            "epoch_seconds": []}
-    cuda = dev.type == "cuda"
     for epoch in range(resume_epoch, args["epochs"] + 1):
         # epoch-keyed noise: the same draws whether or not the run resumed
         # (and per data rank: each renders other samples)
@@ -402,23 +388,22 @@ def train(args, device="cuda", mesh=None) -> dict:
             if batch is None:
                 break
             t_wait = time.perf_counter() - t_wait
-            m0 = _mark(cuda)
+            m0 = trace.mark(dev)
             stack, depth_dev, aif_dev = _render_batch(train_lens, *batch,
                                                       generator, train=True)
-            m1 = _mark(cuda)
+            m1 = trace.mark(dev)
             losses = step_fn(state, stack, depth_dev,
                              aif_dev if train_mode == "deblur" else None)
-            timing.append((t_wait, m0, m1, _mark(cuda)))
+            timing.append((t_wait, m0, m1, trace.mark(dev)))
             pending.append(losses)
             n_steps += 1
             if len(pending) >= 8:
                 drain()
         drain()
         out["epoch_seconds"].append(time.perf_counter() - t0)
-        if cuda:
-            torch.cuda.synchronize(dev)
-        out["steps"] += [{"data_wait_s": t_wait, "render_ms": _ms(m0, m1),
-                          "train_step_ms": _ms(m1, m2)}
+        out["steps"] += [{"data_wait_s": t_wait,
+                          "render_ms": trace.elapsed_ms(m0, m1),
+                          "train_step_ms": trace.elapsed_ms(m1, m2)}
                          for t_wait, m0, m1, m2 in timing]
         out["epochs_trained"] += 1
         logging.info(f"Epoch {epoch}: train loss {epoch_loss / max(n_steps, 1):.4f} "

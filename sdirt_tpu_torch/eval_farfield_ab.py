@@ -31,10 +31,10 @@ from .dfdp.factory import ported_weights
 from .dfdp.metrics import mask_accuracy_k, mask_mae
 from .dfdp.monitor import select_focus_dist
 from .dfdp.train import dfdp_infer
-from .dfdp_net import _mark, _ms
 from .psfnet.stack import FocalStackLens
 from .psfnet.surrogate import PSFNetLens
 from .render import fused_conv
+from .utils import trace
 from .utils.device import resolve_device
 
 COLUMNS = ("acc1", "mae", "far_acc1", "far_mae", "near_acc1")
@@ -68,17 +68,16 @@ def evaluate_arm(name, ckpt, psfnet, ks, args, dev) -> dict:
                         n_views=getattr(lens, "n_views", 1))
     ds = SyntheticRGBD(tuple(args.res), length=args.val_len, seed=999,
                        train=False, style="v2")
-    cuda = dev.type == "cuda"
     acc, mae, facc, fmae, nacc, render_ms = [], [], [], [], [], []
     k2_before = fused_conv.launches
     for i in range(len(ds)):
         aif, gt = (a[None] for a in ds[i])
         focus = select_focus_dist(gt, 1)
-        m0 = _mark(cuda)
+        m0 = trace.mark(dev)
         dp = lens.render(aif, -gt * 1e3, -focus[:, 0] * 1e3)
-        m1 = _mark(cuda)
+        m1 = trace.mark(dev)
         pred = dfdp_infer(net, dp).cpu().numpy()       # synchronises
-        render_ms.append(_ms(m0, m1))
+        render_ms.append(trace.elapsed_ms(m0, m1))
         mask = gt > 0
         acc.append(mask_accuracy_k(pred, gt, 1, mask))
         mae.append(mask_mae(pred, gt, mask))

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 
 import numpy as np
 import torch
@@ -23,6 +22,7 @@ import torch
 from ..core.constants import D_SENSOR, DMAX, DMIN, GEO_SPP
 from ..dp.psf import compute_psf
 from ..optics.lens import Lens
+from ..utils import trace
 from ..utils.png import write_png
 from ..utils.weights import flax_to_torch, load_npz, torch_to_flax
 from .arch import build_psfnet, load_torch_psfnet
@@ -192,16 +192,9 @@ class PSFNetLens(Lens):
         gen = torch.Generator(device=self.device).manual_seed(0)
 
         def timed(fn):
-            if self.device.type == "cuda":
-                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                return start.elapsed_time(end) / 1e3
-            t0 = time.perf_counter()
+            start = trace.mark(self.device)
             fn()
-            return time.perf_counter() - t0
+            return trace.elapsed_ms(start, trace.mark(self.device)) / 1e3
 
         t_rt = timed(lambda: [self.psf(pts[i:i + chunk], spp=spp, generator=gen)
                               for i in range(0, n_points, chunk)])

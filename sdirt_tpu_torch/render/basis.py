@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from .mlp_fast import bf16_trunk, dense_layers, quant_trunk, stack_views
 
 
@@ -86,30 +87,32 @@ def basis_dp_conv(net, o, lum, ks: int, quant=None,
     layers = dense_layers(net)
     bm, bb = layers[-1]                                    # [ks*ks, K], [ks*ks]
     kdim = bm.shape[1]
-    coeff = basis_coeffs(net, o, quant=quant, compute_dtype=compute_dtype)
+    with trace.span("render.psf_mlp", lum.device):
+        coeff = basis_coeffs(net, o, quant=quant, compute_dtype=compute_dtype)
     coeff = coeff.reshape(n, 2, hh, ww, kdim)
-    # the unnormalised tap sums, from the f32 basis (a flip leaves them)
-    s = coeff @ bm.float().sum(0) + bb.float().sum()       # [N, 2, H, W]
+    with trace.span("render.dp_conv", lum.device):
+        # the unnormalised tap sums, from the f32 basis (a flip leaves them)
+        s = coeff @ bm.float().sum(0) + bb.float().sum()   # [N, 2, H, W]
 
-    # local_dp_conv applies psf[ks-1-dy, ks-1-dx] to img_pad[y+dy, x+dx]:
-    # the left taps enter flipped in both axes, the right view's (already
-    # kx-mirrored) in ky only
-    basis = bm.float().t().reshape(kdim, ks, ks)
-    bias_k = bb.float().reshape(1, ks, ks)
-    bank = torch.cat([basis.flip(-1, -2), bias_k.flip(-1, -2),
-                      basis.flip(-2), bias_k.flip(-2)])   # [2K+2, ks, ks]
+        # local_dp_conv applies psf[ks-1-dy, ks-1-dx] to img_pad[y+dy, x+dx]:
+        # the left taps enter flipped in both axes, the right view's (already
+        # kx-mirrored) in ky only
+        basis = bm.float().t().reshape(kdim, ks, ks)
+        bias_k = bb.float().reshape(1, ks, ks)
+        bank = torch.cat([basis.flip(-1, -2), bias_k.flip(-1, -2),
+                          basis.flip(-2), bias_k.flip(-2)])  # [2K+2, ks, ks]
 
-    pad = (ks - 1) // 2
-    img_b = F.pad(lum.permute(0, 3, 1, 2).reshape(n * c, 1, hh, ww),
-                  (pad, pad, pad, pad), mode="replicate")
-    g = _conv_bank(img_b, bank[:, None], compute_dtype)
-    g = g.reshape(n, c, 2 * kdim + 2, hh, ww)
+        pad = (ks - 1) // 2
+        img_b = F.pad(lum.permute(0, 3, 1, 2).reshape(n * c, 1, hh, ww),
+                      (pad, pad, pad, pad), mode="replicate")
+        g = _conv_bank(img_b, bank[:, None], compute_dtype)
+        g = g.reshape(n, c, 2 * kdim + 2, hh, ww)
 
-    cq = coeff.to(compute_dtype).permute(0, 1, 4, 2, 3)    # [N, 2, K, H, W]
-    out_l = _contract(cq[:, 0], g[:, :, :kdim]) + g[:, :, kdim].float()
-    out_r = (_contract(cq[:, 1], g[:, :, kdim + 1:2 * kdim + 1])
-             + g[:, :, 2 * kdim + 1].float())
-    inv = 1.0 / (s + 1e-9)                                 # [N, 2, H, W]
-    out_l = (out_l * inv[:, 0, None]).permute(0, 2, 3, 1)
-    out_r = (out_r * inv[:, 1, None]).permute(0, 2, 3, 1)
-    return out_l, out_r
+        cq = coeff.to(compute_dtype).permute(0, 1, 4, 2, 3)  # [N, 2, K, H, W]
+        out_l = _contract(cq[:, 0], g[:, :, :kdim]) + g[:, :, kdim].float()
+        out_r = (_contract(cq[:, 1], g[:, :, kdim + 1:2 * kdim + 1])
+                 + g[:, :, 2 * kdim + 1].float())
+        inv = 1.0 / (s + 1e-9)                             # [N, 2, H, W]
+        out_l = (out_l * inv[:, 0, None]).permute(0, 2, 3, 1)
+        out_r = (out_r * inv[:, 1, None]).permute(0, 2, 3, 1)
+        return out_l, out_r

@@ -36,6 +36,7 @@ import os
 
 import torch
 
+from ..utils import trace
 from .camera import degamma, dp_noise, gamma
 
 VARIANTS = ("scan", "fused", "fused_int8", "basis", "basis_int8")
@@ -137,11 +138,13 @@ def _scan(net, o, lum, ks, mlp_bf16, scan_right):
     from ..psfnet.surrogate import pred_psf
     from .perpixel import local_dp_conv
 
-    fn = _bf16_fn(net) if mlp_bf16 else net
-    fn_r = net if (mlp_bf16 and scan_right == "f32") else None
-    psf = pred_psf(fn, o, ks, flip_right=scan_right != "noflip",
-                   fn_right=fn_r)                            # [N, H, W, 2, ks, ks]
-    return local_dp_conv(lum, psf, ks, mirror_right=scan_right == "noflip")
+    with trace.span("render.psf_mlp", o.device):
+        fn = _bf16_fn(net) if mlp_bf16 else net
+        fn_r = net if (mlp_bf16 and scan_right == "f32") else None
+        psf = pred_psf(fn, o, ks, flip_right=scan_right != "noflip",
+                       fn_right=fn_r)                        # [N, H, W, 2, ks, ks]
+    with trace.span("render.dp_conv", o.device):
+        return local_dp_conv(lum, psf, ks, mirror_right=scan_right == "noflip")
 
 
 @torch.no_grad()
@@ -174,24 +177,29 @@ def render_dp(net, img, depth, foc_dist, *, d_sensor, d_min, d_max, ks,
     del foc_dist
     if depth.dim() == 3:
         depth = depth[:, None]
-    o = query_points(depth.float(), d_sensor, d_min, d_max)
-    lum = degamma(img.float().permute(0, 2, 3, 1))           # [N, H, W, C]
-    quant = get_quant(net) if variant.endswith("_int8") else None
-    if variant.startswith("fused"):
-        from .fused_conv import fused_dp_conv_tapmajor
-        from .mlp_fast import mlp_psf_tapmajor
+    dev = img.device
+    with trace.span("render", dev):
+        o = query_points(depth.float(), d_sensor, d_min, d_max)
+        lum = degamma(img.float().permute(0, 2, 3, 1))       # [N, H, W, C]
+        quant = get_quant(net) if variant.endswith("_int8") else None
+        if variant.startswith("fused"):
+            from .fused_conv import fused_dp_conv_tapmajor
+            from .mlp_fast import mlp_psf_tapmajor
 
-        psf_tm = mlp_psf_tapmajor(net, o, ks, quant=quant)
-        render_l, render_r = fused_dp_conv_tapmajor(lum, psf_tm, ks)
-        del psf_tm
-    elif variant.startswith("basis"):
-        from .basis import basis_dp_conv
+            with trace.span("render.psf_mlp", dev):
+                psf_tm = mlp_psf_tapmajor(net, o, ks, quant=quant)
+            with trace.span("render.dp_conv", dev):
+                render_l, render_r = fused_dp_conv_tapmajor(lum, psf_tm, ks)
+            del psf_tm
+        elif variant.startswith("basis"):
+            from .basis import basis_dp_conv
 
-        render_l, render_r = basis_dp_conv(net, o, lum, ks, quant=quant)
-    else:
-        render_l, render_r = _scan(net, o, lum, ks, mlp_bf16, scan_right)
-    render = torch.cat([render_l, render_r], dim=-1)         # [N, H, W, 2C]
-    render = gamma(render).permute(0, 3, 1, 2)               # [N, 2C, H, W]
-    if train:
-        render = dp_noise(generator, render)
-    return torch.clamp(render, 0.0, 1.0)
+            render_l, render_r = basis_dp_conv(net, o, lum, ks, quant=quant)
+        else:
+            render_l, render_r = _scan(net, o, lum, ks, mlp_bf16, scan_right)
+        with trace.span("render.camera", dev):
+            render = torch.cat([render_l, render_r], dim=-1)  # [N, H, W, 2C]
+            render = gamma(render).permute(0, 3, 1, 2)        # [N, 2C, H, W]
+            if train:
+                render = dp_noise(generator, render)
+            return torch.clamp(render, 0.0, 1.0)
