@@ -7,8 +7,8 @@ Phases, each printing its elapsed seconds:
   0. device: a CUDA card is required (no CPU fallback); TF32 is switched off
      for matmuls and convolutions, so the depth net, the splat and the PSF
      MLP run in full f32;
-  1. build: both CUDA kernels (K1 fused trace, K2 fused DP conv) are
-     compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel with K1's
+  1. build: the CUDA kernels (K1 fused trace, K2 fused DP conv, K3 dense
+     bf16 layer) are compiled with nvcc from sdirt_tpu_torch/csrc/, in parallel with K1's
      probe kernels and the native engine's g++ build; their -Xptxas -v reports, K1's SASS instruction count
      per ray (rf50mm, rf35mm) and K2's shared memory per launch printed;
   2. K2 vs plain: K2 against its plain PyTorch version on seeded inputs at
@@ -66,7 +66,11 @@ Phases, each printing its elapsed seconds:
      by the fused rows only; K2 vs plain on the fused_int8 PSF, the int8
      path on the card vs on the CPU; per variant and lens the render
      call's time and peak memory (at rf50mm with a torch.profiler
-     breakdown), and the times of its parts;
+     breakdown), and the times of its parts; K3 per layer of both nets at
+     the training render's 4 x 2 x 512 x 768 rows, on the chain's own
+     activations, against its bound, its plain version and the library's
+     bias + ReLU epilogue (torch._addmm_activation, timed only), and held
+     to the plain version;
  12. rf35mm serve path: ``--stage sample`` on configs/dfdp_by_sdirt_rf35mm.yml
      through dfdp_net.main(), held against
      sdirt_tpu_torch/reference/stage_sample_rf35mm_jax_cpu.json (flat PSNR
@@ -183,7 +187,11 @@ Phases, each printing its elapsed seconds:
      ms (CUDA events), the render's device idle share from a profile_trace
      scope (its Chrome trace file read back) and a print_memory line;
  29. the kernels line, then the card's name and power limit, then the
-     result line.
+     result line. Every phase that runs a render path (serve, training,
+     gates, deblur, stack, eval, A/B, data-parallel, single image) sets
+     K3's launch counter to 0 first and keeps its count beside the one its
+     renders call for (K3_PER_RENDER); the kernels line lists them by path,
+     and any mismatch fails this phase.
 Any failure raises: the exit code is then not 0 and no result line is
 printed.
 """
@@ -220,6 +228,13 @@ PERC_RTOL = 0.05
 BASIS_NET = "mlpb@256x48"       # both lenses' promoted surrogate
 GATE_ROWS = {"mlp": ["--variants", "fused", "fused_int8", "scan", "--f32-baseline"],
              BASIS_NET: ["--variants", "scan", "basis", "basis_int8"]}
+# K3 (render/dense_bf16.py) launches a render call: the 10 trunk layers and
+# the head of a fused render, the 11 coefficient layers of a basis render,
+# the head alone of a fused_int8 render (its trunk is int8); none for scan
+K3_PER_RENDER = {"fused": 11, "basis": 11, "fused_int8": 1}
+# {path: (K3 launches on it, the count its renders call for)}, filled by
+# k3_record as the phases run; the result phase fails on any mismatch
+K3_PATHS = {}
 BF16_FLOPS = 989e12             # H100 SXM, dense bf16 tensor cores
 INT8_OPS = 1979e12              # H100 SXM, dense int8 tensor cores
 # K1 vs its plain version, rays live in both: the JAX package's own
@@ -379,6 +394,23 @@ def max_diff(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
 
+def k3_agreement(got, want):
+    """How far K3's bf16 output lies from its plain version's: (the most
+    bf16 ulps between them where the larger lies above 1/256 of the largest
+    output, the largest absolute gap, the share of outputs that differ); a
+    copy of tests/test_torch_dense_kernel.py:agreement, which has the
+    reasons."""
+    top = float(want.abs().max())
+    worst, gap, differ = 0, 0.0, 0
+    for a, r in zip(got.reshape(-1).split(1 << 24), want.reshape(-1).split(1 << 24)):
+        a32, r32 = a.float(), r.float()
+        ulps = (a.view(torch.int16).int() - r.view(torch.int16).int()).abs()
+        worst = max(worst, int(ulps.masked_fill(torch.maximum(a32, r32) < top / 256, 0).max()))
+        gap = max(gap, float((a32 - r32).abs().max()))
+        differ += int((ulps != 0).sum())
+    return worst, gap, differ / want.numel()
+
+
 def worst_pixel(psf_tm, ks, got, ref):
     """Print where K2 and its plain version differ most: both values, the
     gap in f32 ulps of the value, and that pixel's tap sum as the plain
@@ -420,6 +452,27 @@ def k1_bound_ms(n_rays, ops_per_ray):
     t_bytes = n_rays * 11 * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = n_rays * ops_per_ray / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_reset():
+    """Set K3's launch counter to 0 before a main-path run."""
+    from sdirt_tpu_torch.render import dense_bf16
+
+    dense_bf16.launches = 0
+
+
+def k3_record(path, got, want):
+    """Keep K3's ``got`` launches on ``path`` beside ``want``, the count its
+    renders call for (K3_PER_RENDER)."""
+    K3_PATHS[path] = (got, want)
+    print(f"K3 launches on the {path} path: {got} (want {want})")
+
+
+def k3_count(path, want):
+    """k3_record of K3's launches since k3_reset()."""
+    from sdirt_tpu_torch.render import dense_bf16
+
+    k3_record(path, dense_bf16.launches, want)
 
 
 def bench_points(rng, n):
@@ -652,11 +705,13 @@ def training_phase(dfdp_net, fused_conv, smi):
         argv = ["--stage", "train", "--config", cfg_path, "--device", "cuda",
                 "--out", os.path.join(tmp, "results")]
         fused_conv.launches = 0
+        k3_reset()
         torch.cuda.reset_peak_memory_stats()
         t_main = time.perf_counter()
         res1 = dfdp_net.main(argv)
         main_s = time.perf_counter() - t_main
         k2 = fused_conv.launches
+        k3_count("train", K3_PER_RENDER["fused"] * k2)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         losses = np.array(res1["losses"])
         n_steps = TRAIN_CUTS["synthetic_len"] // bs
@@ -898,7 +953,75 @@ def gate_rows(gate, fused_conv, lens_name, net, jax_rows):
         print(f"{what}: K2 launches {r['k2_launches']}")
         if (r["k2_launches"] > 0) != variant.startswith("fused"):
             failed.append(f"{what}: K2 launched {r['k2_launches']} times")
+        # one render per view and scene
+        k3_record(f"gate {what}", r["k3_launches"],
+                  K3_PER_RENDER.get(variant, 0) * 2 * len(r["flat"]))
     return rows, launches, failed
+
+
+def k3_layers(nets, o):
+    """K3 (render/dense_bf16.py) layer by layer through each net's bf16
+    chain (the PSF MLP's 10 trunk layers and its tap-major head; the basis
+    student's 11 coefficient layers) at 4 x 2 x 512 x 768 rows, the
+    training render's: each layer's K3 time (CUDA events) beside its bound
+    (the larger of bf16 bytes at 3.35 TB/s and bf16 FLOPs at 989 TFLOP/s),
+    its plain version's time and the library's fused route's
+    (torch._addmm_activation: cuBLASLt's bias + ReLU epilogue, the bias
+    rounded to bf16 first; the port does not call it), on the same input,
+    the previous K3 layer's output. The epilogue adds its bias along the
+    output's columns, so at the tap-major head the library is timed
+    writing [rows, taps]: the same bytes and FLOPs in the other layout.
+    Raises where K3 and the plain version are more than one bf16 ulp apart
+    away from the ReLU's zero, more than one ulp of the layer's largest
+    output near it, or differ on 1% of the outputs (k3_agreement).
+    Returns {net: [per-layer records]}. Calls K3 directly, outside any path
+    K3_PATHS counts."""
+    from sdirt_tpu_torch.render import dense_bf16, mlp_fast
+
+    x = mlp_fast.stack_views(o.expand(4, *o.shape[1:]).contiguous()).to(torch.bfloat16)
+    out = {}
+    for name, (net, head) in nets.items():
+        layers = [(w.to(torch.bfloat16), b) for w, b in mlp_fast.dense_layers(net)]
+        layers = layers if head else layers[:-1]
+        h, rows, recs = x, x.shape[0], []
+        for i, (w, b) in enumerate(layers):
+            tm = head and i == len(layers) - 1
+            n, k = w.shape
+            k3_ms = cuda_time_ms(lambda: dense_bf16.dense_relu(h, w, b, tapmajor=tm), 10)
+            plain_ms = cuda_time_ms(lambda: dense_bf16.dense_relu_ref(h, w, b, tapmajor=tm), 3)
+            b16 = b.to(torch.bfloat16)
+            library_ms = cuda_time_ms(lambda: torch._addmm_activation(b16, h, w.t()), 10)
+            got = dense_bf16.dense_relu(h, w, b, tapmajor=tm)
+            want = dense_bf16.dense_relu_ref(h, w, b, tapmajor=tm)
+            top = float(want.abs().max())
+            worst, gap, share = k3_agreement(got, want)
+            kp = -(-k // dense_bf16.ALIGN) * dense_bf16.ALIGN
+            byts = rows * (kp + n) * 2 + n * kp * 2 + n * 4
+            flops = 2 * rows * k * n
+            bound = max(byts / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+            by = "bytes" if byts / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "FLOPs"
+            print(f"  K3 {name} layer {i} {k}->{n}{' tap-major' if tm else ''} at {rows} "
+                  f"rows: {k3_ms:.4f} ms (bound {bound:.4f} ms by {by}, "
+                  f"{100 * bound / k3_ms:.1f}%), plain {plain_ms:.4f} ms, library "
+                  f"{library_ms:.4f} ms{' (row-major)' if tm else ''}; "
+                  f"{worst} ulp away from zero, gap {gap:.3e} of {top:.3e}, "
+                  f"{share:.2e} of outputs differ")
+            if worst > 1 or gap > top * 2.0 ** -8 or share >= 0.01:
+                raise RuntimeError(f"K3 disagrees with its plain version at {name} layer {i}")
+            recs.append({"k": k, "n": n, "tapmajor": tm, "ms": k3_ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms,
+                         "bound_ms": bound, "bound_by": by, "max_ulps": worst,
+                         "max_abs_gap": gap, "share_differ": share})
+            h = got
+            del want
+        total = sum(r["ms"] for r in recs)
+        print(f"  K3 {name}: {len(recs)} layers {total:.3f} ms (bound "
+              f"{sum(r['bound_ms'] for r in recs):.3f} ms, plain "
+              f"{sum(r['plain_ms'] for r in recs):.3f} ms, library "
+              f"{sum(r['library_ms'] for r in recs):.3f} ms)")
+        out[name] = recs
+        del h
+    return out
 
 
 def variant_times(dfdp_net, fused_conv, smi):
@@ -983,6 +1106,7 @@ def variant_times(dfdp_net, fused_conv, smi):
                 "basis_dp_conv int8": lambda: basis.basis_dp_conv(bnet, o, lum, KS,
                                                                   quant=bquant)})
             part_ms = {k: cuda_time_ms(fn, 5) for k, fn in parts.items()}
+            k3 = k3_layers({"mlp": (net, True), BASIS_NET: (bnet, False)}, o)
             width = layers[2][0].shape[0]
             trunk_ops = 2 * rows * width * width * len(quant["wq"])
             bflops = 2 * rows * sum(w.numel() for w, _ in mlp_fast.dense_layers(bnet)[:-1])
@@ -1030,7 +1154,7 @@ def variant_times(dfdp_net, fused_conv, smi):
             bound_ms, bound_by = k2_bound_ms(n, h, w, c, KS)
             print(f"K2 on the fused_int8 PSF {tuple(lum.shape)}: {k2_ms:.4f} ms per launch "
                   f"(bound {bound_ms:.4f} ms by {bound_by}); vs plain {k2_err:.3e}")
-            out.update(parts_ms=part_ms, trunk_card_vs_cpu=trunk_diff,
+            out.update(parts_ms=part_ms, trunk_card_vs_cpu=trunk_diff, k3=k3,
                        k2_int8={"ms": k2_ms, "max_abs_err": k2_err, "bound_ms": bound_ms})
             del psf_tm, o, lum, x
         del mlp_lens, basis_lens
@@ -1104,9 +1228,11 @@ def serve_f18(dfdp_net, fused_conv, smi):
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path, _ = cut_config(F18_CONFIG, tmp, train={"dfdpnet_pretrained": F18_NET})
         fused_conv.launches = 0
+        k3_reset()
         result = dfdp_net.main(["--stage", "sample", "--config", cfg_path, "--device",
                                 "cuda", "--out", os.path.join(tmp, "out")])
         launches = fused_conv.launches
+        k3_count("serve_f18", K3_PER_RENDER["fused"] * launches)
         print(f"K2 launches on the F/1.8 serve path: {launches}")
         if launches <= 0:
             raise RuntimeError("the F/1.8 serve path did not launch K2")
@@ -1124,8 +1250,10 @@ def farfield_ab(fused_conv):
         ref = json.load(f)["full"]
     argv = ["--device", "cuda", *ref["argv"]]
     fused_conv.launches = 0
+    k3_reset()
     rows = eval_farfield_ab.main(argv)
     launches = fused_conv.launches
+    k3_count("farfield_ab", K3_PER_RENDER["fused"] * launches)
     failed = []
     for r in rows:
         want = ref["arms"][r["name"]]
@@ -1192,10 +1320,12 @@ def train_cut(dfdp_net, fused_conv, path, tmp, bs, extra_argv=(), **sides):
         raise RuntimeError(f"{path} is not at 256x384, bs {bs}")
     out = os.path.join(tmp, "results")
     fused_conv.launches = 0
+    k3_reset()
     torch.cuda.reset_peak_memory_stats()
     res = dfdp_net.main(["--stage", "train", "--config", cfg_path, "--device", "cuda",
                          "--out", out, *extra_argv])
     launches = fused_conv.launches
+    k3_count(f"train {os.path.basename(path)}", K3_PER_RENDER["fused"] * launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     with open(os.path.join(out, "train.log")) as f:
         log = f.read()
@@ -1223,10 +1353,12 @@ def deblur_phase(dfdp_net, fused_conv, smi):
         cfg_path, _ = cut_config(DEBLUR_SAMPLE_CONFIG, tmp,
                                  train={"dfdpnet_pretrained": DEBLUR_NET})
         fused_conv.launches = 0
+        k3_reset()
         result = dfdp_net.main(["--stage", "sample", "--config", cfg_path, "--train-mode",
                                 "deblur", "--device", "cuda", "--out",
                                 os.path.join(tmp, "out")])
         out["sample_launches"] = fused_conv.launches
+        k3_count("deblur_sample", K3_PER_RENDER["fused"] * out["sample_launches"])
     for tag, m in result["depth"].items():
         for k, v in ref["depth"][tag].items():
             d = m[k] - v
@@ -1671,6 +1803,7 @@ def real_data_phase(dfdp_net, fused_conv, smi):
 
         dfdp_net.get_dataset, dfdp_net.dfdp_train_step = cut_dataset, measured_step
         fused_conv.launches = 0
+        k3_reset()
         torch.cuda.reset_peak_memory_stats()
         results = os.path.join(tmp, "results")
         t0 = time.perf_counter()
@@ -1681,6 +1814,7 @@ def real_data_phase(dfdp_net, fused_conv, smi):
             dfdp_net.get_dataset, dfdp_net.dfdp_train_step = get_dataset, train_step
         out["main_s"] = time.perf_counter() - t0
         out["k2_launches"] = fused_conv.launches
+        k3_count("published_train", K3_PER_RENDER["fused"] * out["k2_launches"])
         n_val = FT3D_SCENES["FlyingThings3D_test"]
         epochs = REAL_CUTS["epochs"]
         want = epochs * REAL_STEPS + (epochs + 1) * n_val
@@ -1778,10 +1912,12 @@ def depth_tools_phase(fused_conv, fused_trace):
     out, failed = {"seconds": {}}, []
     t0 = time.perf_counter()
     fused_conv.launches = 0
+    k3_reset()
     res = eval_depth_ckpt.main(["--ckpt", "ckpt/rf50mm/Sdirt_best_acc1", "--val-len", "2",
                                 "--device", "cuda"])
     out["seconds"]["eval_depth_ckpt"] = time.perf_counter() - t0
     out["eval_k2_launches"] = fused_conv.launches
+    k3_count("eval_depth_ckpt", K3_PER_RENDER["fused"] * out["eval_k2_launches"])
     rows = {**res["synthetic"], **{f"real {k}": v for k, v in res["real"].items()}}
     tol = ref["eval_depth_ckpt"]["tolerance"]
     for k, want in ref["eval_depth_ckpt"]["rows"].items():
@@ -2005,8 +2141,14 @@ def student_gate_phase(fused_conv, smi):
     for run, argv in GATE_STUDENTS.items():
         want = ref["runs"][run]
         fused_conv.launches = 0
+        k3_reset()
         res = gate_rf35_student.main(argv + ["--device", "cuda"])
         launches = fused_conv.launches
+        # one render per view and scene, on each row and the calibration's
+        # w256 fused_int8 renders
+        k3_count(f"student_gate {run}",
+                 2 * 2 * (sum(K3_PER_RENDER.get(v, 0) for v in res["rows"])
+                          + (K3_PER_RENDER["fused_int8"] if res["calibration"] else 0)))
         cal = (res["calibration"][0] - ref["calibration"]["psnr_l"],
                res["calibration"][1] - ref["calibration"]["psnr_r"])
         print(f"student gate ({run}): calibration {res['calibration']} (JAX CPU "
@@ -2103,9 +2245,12 @@ def multi_gpu_phase(dfdp_net, fit_psfnet, fused_conv, fused_trace, smi):
                                  train_state_dir=os.path.join(tmp, "state"),
                                  real_box_test=box)
         fused_conv.launches = 0
+        k3_reset()
         res = dfdp_net.main(["--stage", "train", "--data-parallel", "--config", cfg_path,
                              "--device", "cuda", "--out", os.path.join(tmp, "dp")])
         out["data_parallel_k2_launches"] = fused_conv.launches
+        k3_count("data_parallel_1card",
+                 K3_PER_RENDER["fused"] * out["data_parallel_k2_launches"])
         with open(os.path.join(tmp, "dp", "train.log")) as f:
             log = f.read()
         single = ("data_parallel requested but only one usable device; running "
@@ -2143,6 +2288,8 @@ def multi_gpu_phase(dfdp_net, fit_psfnet, fused_conv, fused_trace, smi):
     out["two_rank_k1_launches"] = [r[0]["k1_launches"] for r in ranks]
     out["two_rank_k2_launches"] = [r[1]["k2_launches"] for r in ranks]
     for rank, (fit_r, dfdp_r) in enumerate(ranks):
+        k3_record(f"dfdp_2rank rank {rank}", dfdp_r["k3_launches"],
+                  K3_PER_RENDER["fused"] * dfdp_r["k2_launches"])
         loss_rel = abs(fit_r["losses"][0] - one_fit["losses"][0]) / one_fit["losses"][0]
         par = float(np.abs(fit_r["params"] - one_fit["params"]).max()
                     / np.abs(one_fit["params"]).max())
@@ -2368,8 +2515,10 @@ def single_image_phase(fused_trace, fused_conv, smi):
     out = {"d_sensor_gap_mm": abs(lens.d_sensor - float(ref["d_sensor"]))}
 
     fused_trace.launches = fused_conv.launches = 0
+    k3_reset()
     got = render_single_image(lens, img, depth, **kw)
     torch.cuda.synchronize()
+    k3_count("single_image", 0)
     if (fused_trace.launches, fused_conv.launches) != (0, 0):
         raise RuntimeError("the single-image render launched K1 or K2")
     if got.device.type != "cuda" or tuple(got.shape) != (512, 768, 3):
@@ -2559,10 +2708,12 @@ def main():
         ref = json.load(f)
     with tempfile.TemporaryDirectory() as out:
         fused_conv.launches = 0
+        k3_reset()
         result = dfdp_net.main(["--stage", "sample", "--config",
                                 "configs/dfdp_by_sdirt_rf50mm.yml",
                                 "--device", "cuda", "--out", out])
         launches = fused_conv.launches
+        k3_count("serve", K3_PER_RENDER["fused"] * launches)
     print(f"K2 launches on the serve path: {launches}")
     if launches <= 0:
         raise RuntimeError("the serve path did not launch K2")
@@ -2794,10 +2945,12 @@ def main():
         ref35 = json.load(f)
     with tempfile.TemporaryDirectory() as out:
         fused_conv.launches = 0
+        k3_reset()
         result35 = dfdp_net.main(["--stage", "sample", "--config",
                                   "configs/dfdp_by_sdirt_rf35mm.yml",
                                   "--device", "cuda", "--out", out])
         launches35 = fused_conv.launches
+        k3_count("serve_rf35mm", K3_PER_RENDER["fused"] * launches35)
     print(f"K2 launches on the rf35mm serve path: {launches35}")
     if launches35 <= 0:
         raise RuntimeError("the rf35mm serve path did not launch K2")
@@ -2928,7 +3081,14 @@ def main():
         "ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "train_shape": train_stats["k2"], "fused_int8_psf": variant_stats["k2_int8"],
-        "ks35": k2_35}],
+        "ks35": k2_35}, {
+        "name": "dense_bf16_relu", "route": "cuda",
+        "source": "sdirt_tpu_torch/csrc/dense_bf16.cu", "replaces": None,
+        "launches": sum(v[0] for v in K3_PATHS.values()),
+        "launches_by_path": {p: v[0] for p, v in K3_PATHS.items()},
+        "layers": variant_stats["k3"],
+        **{key: sum(r[key] for r in variant_stats["k3"]["mlp"])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")}}],
         "train": {k: v for k, v in train_stats.items() if k not in ("k2",)},
         "train_step_reference": train_ref,
         "variants": {"gate": variant_rows, "render": variant_stats["render"],
@@ -2941,6 +3101,9 @@ def main():
         "multi_gpu": multi, "native": native_stats, "single_image": single},
         default=float))
     print(smi)
+    k3_off = {p: v for p, v in K3_PATHS.items() if v[0] != v[1]}
+    if k3_off:
+        raise RuntimeError(f"K3 launches off what the renders call for, (got, want): {k3_off}")
     signal.alarm(0)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

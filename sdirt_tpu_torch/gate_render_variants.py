@@ -24,7 +24,7 @@ import numpy as np
 
 from .dfdp.factory import get_flat_sample_set, get_lens
 from .dfdp_net import test_dp_images
-from .render import fused_conv
+from .render import dense_bf16, fused_conv
 from .utils.config import load_config
 from .utils.device import resolve_device
 
@@ -54,7 +54,8 @@ def parse_args(argv=None):
 
 def main(argv=None) -> list[dict]:
     """Run the gate; returns one row per variant: its mean scores over the
-    scenes, the per-scene records ("flat") and the K2 launches it made."""
+    scenes, the per-scene records ("flat") and the K2 and K3 launches it
+    made."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = load_config(args.config)
@@ -74,10 +75,11 @@ def main(argv=None) -> list[dict]:
     for variant in variants:
         kw = ({"variant": "scan", "mlp_bf16": False} if variant == "scan_f32"
               else {"variant": variant})
-        before = fused_conv.launches
+        before = fused_conv.launches, dense_bf16.launches
         flat = test_dp_images(lens, scenes, **kw)
         row = {"variant": variant, "flat": flat,
-               "k2_launches": fused_conv.launches - before}
+               "k2_launches": fused_conv.launches - before[0],
+               "k3_launches": dense_bf16.launches - before[1]}
         row.update({k: float(np.mean([r[k] for r in flat])) for k in SCORES})
         rows.append(row)
         logging.info(f"--- {variant}: " + " ".join(f"{k} {row[k]:.4f}" for k in SCORES))

@@ -90,7 +90,7 @@ def fit_rank(rank, world, dev, spec):
 def dfdp_rank(rank, world, dev, spec):
     from ..dfdp.basenet import build_basenet
     from ..dfdp.train import create_dfdp_state
-    from ..render import fused_conv
+    from ..render import dense_bf16, fused_conv
     from .steps import make_sharded_dfdp_step
 
     mesh = make_mesh(world, 1)
@@ -116,7 +116,7 @@ def dfdp_rank(rank, world, dev, spec):
         from ..utils.config import load_config
 
         lens = get_lens(load_config(spec["config"]), device=dev)[0]
-    before = fused_conv.launches
+    before = fused_conv.launches, dense_bf16.launches
     losses, ms = [], []
     for s in range(spec["steps"]):
         if lens is None:
@@ -144,7 +144,8 @@ def dfdp_rank(rank, world, dev, spec):
     params = torch.cat([p.detach().reshape(-1).double() for p in net.parameters()])
     return {"losses": losses, "batch_stats": stats,
             "params": params.cpu().numpy(), "step_ms": ms,
-            "k2_launches": fused_conv.launches - before}
+            "k2_launches": fused_conv.launches - before[0],
+            "k3_launches": dense_bf16.launches - before[1]}
 
 
 def sequence(rank, world, dev, jobs):

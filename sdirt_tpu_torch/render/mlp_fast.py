@@ -6,8 +6,10 @@ last layer is computed as W^T H^T so the PSF comes out tap-major,
 ``[ks*ks, N, 2, P]``, the layout the fused conv (fused_conv.py) reads with
 neighbouring pixels at neighbouring addresses. Numerics follow the JAX
 chain: bf16 operands, f32 accumulation, bias and ReLU in f32, activations
-rounded to bf16 between layers. The GEMMs are plain ``torch`` products, as
-the JAX package left them to XLA outside any Pallas kernel.
+rounded to bf16 between layers. On the card every bf16 layer, the head
+included, is one launch of K3 (dense_bf16.py), which does the bias, ReLU and
+rounding in its epilogue, as XLA fused them into its GEMMs on the TPU; on
+the CPU it is the plain product and passes.
 
 The ``fused_int8`` / ``basis_int8`` trunk (``quantize_mlp``, ``quant_trunk``)
 runs the layers after the first two as int8 x int8 -> int32 products
@@ -23,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .dense_bf16 import dense_relu
 
 
 def dense_layers(net):
@@ -50,11 +54,11 @@ def mm_f32(a, b):
 
 def bf16_trunk(layers, x):
     """bf16 forward of ``layers`` (ReLU after each) on the rows x: bf16
-    operands, f32 sums, bias and ReLU in f32, bf16 out."""
+    operands, f32 sums, bias and ReLU in f32, bf16 out; one K3 launch a
+    layer on the card."""
     h = x.to(torch.bfloat16)
     for w, b in layers:
-        h = mm_f32(h, w.to(torch.bfloat16).t()).add_(b).relu_()
-        h = h.to(torch.bfloat16)
+        h = dense_relu(h, w.to(torch.bfloat16), b)
     return h
 
 
@@ -71,11 +75,10 @@ def mlp_psf_tapmajor(net, o, ks: int, *, quant=None):
     else:
         h = bf16_trunk(layers[:-1], x)
     w, b = layers[-1]                                      # [ks*ks, 512]
-    psf = mm_f32(w.to(torch.bfloat16), h.to(torch.bfloat16).t())
-    psf.add_(b[:, None]).relu_()        # in place: the f32 PSF is 1.4 GB
+    psf = dense_relu(h.to(torch.bfloat16), w.to(torch.bfloat16), b, tapmajor=True)
     n = o.shape[0]
     p = x.shape[0] // (2 * n)
-    return psf.to(torch.bfloat16).reshape(ks * ks, n, 2, p)
+    return psf.reshape(ks * ks, n, 2, p)
 
 
 def mlp_psf_pixelmajor(net, o, ks: int, *, quant=None):

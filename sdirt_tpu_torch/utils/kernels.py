@@ -30,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_FLAGS = (*ARCH_FLAGS, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("fused_dp_conv", "fused_trace")
+SOURCES = ("dense_bf16", "fused_dp_conv", "fused_trace")
 
 # nvcc builds in this process (build() compiles all sources once)
 builds = 0

@@ -227,10 +227,11 @@ class Tracer:
         span's ``id``, ``parent``, ``root``, ``name``, ``thread``,
         ``start_ns`` / ``end_ns`` (perf_counter_ns) and the four times;
         ``counters``; ``session`` (its number, 0 before any); ``dropped``;
-        ``launches``: the K1 and K2 kernels' launches in this process
-        (``dp/fused_trace.py`` and ``render/fused_conv.py``)."""
+        ``launches``: the K1, K2 and K3 kernels' launches in this process
+        (``dp/fused_trace.py``, ``render/fused_conv.py`` and
+        ``render/dense_bf16.py``)."""
         from ..dp import fused_trace
-        from ..render import fused_conv
+        from ..render import dense_bf16, fused_conv
 
         self.on()
         with self._lock:
@@ -261,7 +262,8 @@ class Tracer:
                 row[k] += rec[k]
         return {"session": session, "spans": rows, "records": records,
                 "counters": counters, "dropped": dropped,
-                "launches": {"k1": fused_trace.launches, "k2": fused_conv.launches}}
+                "launches": {"k1": fused_trace.launches, "k2": fused_conv.launches,
+                             "k3": dense_bf16.launches}}
 
 
 TRACER = Tracer()

@@ -23,7 +23,7 @@ from sdirt_tpu_torch.dfdp.datasets import DataLoader
 from sdirt_tpu_torch.dfdp.train import create_dfdp_state, dfdp_train_step
 from sdirt_tpu_torch.dp import fused_trace
 from sdirt_tpu_torch.psfnet.arch import build_psfnet
-from sdirt_tpu_torch.render import fused_conv
+from sdirt_tpu_torch.render import dense_bf16, fused_conv
 from sdirt_tpu_torch.render.pipeline import render_dp
 from sdirt_tpu_torch.utils import trace
 
@@ -248,7 +248,8 @@ def test_snapshot_feeds_the_readers_and_keeps_the_launch_counters():
 
     _profiled(step)
     snap = trace.snapshot()
-    assert snap["launches"] == {"k1": fused_trace.launches, "k2": fused_conv.launches}
+    assert snap["launches"] == {"k1": fused_trace.launches, "k2": fused_conv.launches,
+                                "k3": dense_bf16.launches}
     assert set(snap["counters"]) == {"loader.batches", "loader.work_wall_s",
                                      "loader.work_cpu_s"}
     for row in snap["spans"].values():
